@@ -1,0 +1,6 @@
+"""PyTorch/CUDA port of the budgeted SGD SVM with precomputed golden section search.
+
+The JAX package ``repro`` is the reference; this package computes the same
+training path in PyTorch, with its hand-written CUDA kernels (``kernels``)
+for the NVIDIA H100.  It imports nothing from ``repro`` or JAX.
+"""

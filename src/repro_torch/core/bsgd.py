@@ -1,0 +1,316 @@
+"""Budgeted stochastic gradient descent kernel SVM (Pegasos + merge budget), in PyTorch.
+
+PyTorch counterpart of ``repro.core.bsgd`` for binary problems:
+
+  * SV storage has ``slots = budget + batch_size`` rows; ``count`` is the
+    active watermark.  Insert writes at the watermark; maintenance merges
+    (or removes) until ``count <= budget`` (``core.budget``).
+  * Pegasos step t: eta_t = 1/(lambda t); alpha *= (1 - eta_t lambda); every
+    margin violator of the minibatch is inserted with alpha = eta_t y / batch.
+  * ``batch_size = 1`` is the paper's setting.
+
+The state stays on its device for a whole epoch: a step reads nothing back
+to the host.  Entry points (``init_state``, ``fit``, ``train_epoch``,
+``decision_function``, ``accuracy``) run on ``cuda`` unless the caller
+passes ``device="cpu"``; with no card and no explicit device they raise.
+Matrix products assume PyTorch's default full-fp32 matmul
+(``torch.backends.cuda.matmul.allow_tf32 = False``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import budget as budget_mod
+from .lookup import MergeLookupTable, default_table
+from ..kernels import ops as kops
+
+
+class SVMState(NamedTuple):
+    sv_x: torch.Tensor       # (slots, dim)
+    alpha: torch.Tensor      # (slots,)
+    count: torch.Tensor      # () int32 — active SVs
+    step: torch.Tensor       # () int32 — Pegasos t (starts at 1)
+    n_inserts: torch.Tensor  # () int32 — margin violations so far
+    n_merges: torch.Tensor   # () int32 — budget-maintenance events so far
+
+
+@dataclasses.dataclass(frozen=True)
+class BSGDConfig:
+    """Budgeted-SGD hyperparameters (one binary problem).
+
+    The fields and their validation are ``repro.core.bsgd.BSGDConfig``'s, so
+    one config means the same in both packages.  Valid settings that this
+    port does not carry yet raise ``NotImplementedError`` naming the
+    ROADMAP.md item: ``use_kernel_cache=True``, ``maintenance`` other than
+    ``merge``/``removal``, ``maintenance_engine="pallas"``,
+    ``step_engine="pallas"`` and ``solver="bdca"``.  Maintenance always runs
+    ``batch_size`` masked events per step (the reference's
+    ``unroll_maintenance`` form), whichever ``unroll_maintenance`` says.
+    """
+
+    budget: int = 100
+    lambda_: float = 1e-4
+    gamma: float = 1.0
+    method: str = "lookup-wd"          # gss | gss-precise | lookup-h | lookup-wd
+    batch_size: int = 1
+    grid_size: int = 400
+    dtype: str = "float32"             # alpha / margin arithmetic dtype
+    sv_dtype: str | None = None        # SV row storage; None = dtype
+    use_kernel_cache: bool = False
+    maintenance: str = "merge"         # merge | multi-merge | removal |
+                                       # removal-project | quantized
+    merge_batch: int = 4
+    unroll_maintenance: bool = False
+    maintenance_engine: str = "xla"    # xla | pallas
+    step_engine: str = "composed"      # composed | pallas
+    solver: str = "bsgd"               # bsgd | bdca
+    bdca_rounds: int = 2
+    bdca_C: float = 1.0
+
+    def __post_init__(self):
+        if self.method not in budget_mod.METHODS:
+            raise ValueError(f"method={self.method!r} not in {budget_mod.METHODS}")
+        if self.maintenance not in budget_mod.STRATEGIES:
+            raise ValueError(f"maintenance={self.maintenance!r} not in "
+                             f"{budget_mod.STRATEGIES}")
+        if self.maintenance == "multi-merge" and not (1 <= self.merge_batch <= self.budget):
+            raise ValueError("multi-merge needs 1 <= merge_batch <= budget")
+        if self.maintenance_engine not in ("xla", "pallas"):
+            raise ValueError(f"maintenance_engine={self.maintenance_engine!r}"
+                             " not in ('xla', 'pallas')")
+        if self.maintenance_engine == "pallas" and not (
+                self.use_kernel_cache and self.maintenance == "merge"
+                and self.method == "lookup-wd"):
+            raise ValueError(
+                "maintenance_engine='pallas' runs the fused Lookup-WD merge "
+                "event off the kernel cache: it requires "
+                "use_kernel_cache=True, maintenance='merge' and "
+                "method='lookup-wd'")
+        if self.maintenance in ("removal-project", "quantized") and not self.use_kernel_cache:
+            raise ValueError(
+                f"maintenance={self.maintenance!r} reads projection/"
+                "absorption coefficients from cached kernel rows: it "
+                "requires use_kernel_cache=True")
+        if self.step_engine not in ("composed", "pallas"):
+            raise ValueError(f"step_engine={self.step_engine!r} not in "
+                             "('composed', 'pallas')")
+        if self.step_engine == "pallas" and not (
+                self.use_kernel_cache and self.method == "lookup-wd"
+                and self.maintenance in ("merge", "multi-merge")):
+            raise ValueError(
+                "step_engine='pallas' runs the fused train-step megakernel "
+                "off the kernel cache: it requires use_kernel_cache=True, "
+                "method='lookup-wd' and maintenance in "
+                "('merge', 'multi-merge')")
+        if self.solver not in ("bsgd", "bdca"):
+            raise ValueError(f"solver={self.solver!r} not in ('bsgd', 'bdca')")
+        if self.solver == "bdca":
+            if not self.use_kernel_cache:
+                raise ValueError(
+                    "solver='bdca' ascends on the cached working-set Gram "
+                    "matrix (SVMState.kmat): it requires "
+                    "use_kernel_cache=True")
+            if self.step_engine == "pallas":
+                raise ValueError(
+                    "step_engine='pallas' fuses the Pegasos primal update; "
+                    "solver='bdca' needs step_engine='composed' "
+                    "(maintenance_engine='pallas' composes fine)")
+            if self.bdca_rounds < 1:
+                raise ValueError("solver='bdca' needs bdca_rounds >= 1")
+            if not self.bdca_C > 0:
+                raise ValueError("solver='bdca' needs bdca_C > 0")
+        if self.batch_size < 1:
+            raise ValueError(f"batch_size={self.batch_size} < 1")
+        self._check_ported()
+
+    def _check_ported(self):
+        unported = [
+            (self.use_kernel_cache, "use_kernel_cache=True", "Queue 1 item 5"),
+            (self.maintenance not in budget_mod.PORTED_STRATEGIES,
+             f"maintenance={self.maintenance!r}", "Queue 1 item 5"),
+            (self.maintenance_engine == "pallas", "maintenance_engine='pallas'",
+             "Queue 1 item 6 and Queue 2 kernel 5"),
+            (self.step_engine == "pallas", "step_engine='pallas'",
+             "Queue 1 item 6 and Queue 2 kernel 6"),
+            (self.solver == "bdca", "solver='bdca'", "Queue 1 item 9"),
+        ]
+        for hit, knob, item in unported:
+            if hit:
+                raise NotImplementedError(
+                    f"{knob} is not ported to repro_torch yet (ROADMAP.md {item})")
+
+    @property
+    def slots(self) -> int:
+        return self.budget + self.batch_size
+
+    def table(self) -> MergeLookupTable | None:
+        if self.method.startswith("lookup"):
+            return default_table(self.grid_size)
+        return None
+
+    @staticmethod
+    def from_C(n: int, C: float, **kw) -> "BSGDConfig":
+        return BSGDConfig(lambda_=1.0 / (n * C), **kw)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; None means the card.  Raises where
+    the card is asked for and there is none: nothing falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("repro_torch runs on a CUDA device and none is available; "
+                           "pass device='cpu' to run on the CPU")
+    return dev
+
+
+def _to(state: SVMState, dev: torch.device) -> SVMState:
+    return SVMState(*(t.to(dev) for t in state))
+
+
+def _tensor(a, dev, dtype=torch.float32) -> torch.Tensor:
+    return torch.as_tensor(a).to(dev, dtype)
+
+
+def init_state(cfg: BSGDConfig, dim: int, *, device=None) -> SVMState:
+    dev = resolve_device(device)
+    zero = lambda: torch.zeros((), dtype=torch.int32, device=dev)
+    return SVMState(
+        sv_x=torch.zeros((cfg.slots, dim), dtype=getattr(torch, cfg.sv_dtype or cfg.dtype),
+                         device=dev),
+        alpha=torch.zeros((cfg.slots,), dtype=getattr(torch, cfg.dtype), device=dev),
+        count=zero(), step=torch.ones((), dtype=torch.int32, device=dev),
+        n_inserts=zero(), n_merges=zero())
+
+
+def decision_function(state: SVMState, x, gamma, *, impl: str = "auto", device=None):
+    """f(x) = sum_j alpha_j k(sv_j, x);  x: (n, d) -> (n,)."""
+    dev = resolve_device(device)
+    state = _to(state, dev)
+    k = kops.rbf_matrix(_tensor(x, dev), state.sv_x, gamma, impl=impl)   # (n, slots)
+    active = torch.arange(state.alpha.shape[0], device=dev) < state.count
+    return k.to(state.alpha.dtype) @ torch.where(active, state.alpha, 0.0)
+
+
+def predict(state: SVMState, x, gamma, **kw):
+    return torch.sign(decision_function(state, x, gamma, **kw))
+
+
+def accuracy(state: SVMState, x, y, gamma, *, impl: str = "auto", device=None):
+    """Share of rows whose predicted sign equals ``y`` (a 0-d tensor)."""
+    dev = resolve_device(device)
+    pred = predict(state, x, gamma, impl=impl, device=dev)
+    return (pred == _tensor(y, dev)).to(torch.float32).mean()
+
+
+def insert_from_rows(cfg: BSGDConfig, state: SVMState, xb, yb, k_b) -> SVMState:
+    """The Pegasos shrink + violator insert half of a step (no maintenance).
+
+    ``k_b = k(xb, sv_x)`` of shape (batch, slots).  ``count`` may exceed the
+    budget by up to ``batch_size`` afterwards; ``drain_budget`` drains it."""
+    slots = state.alpha.shape[0]
+    idx = torch.arange(slots, device=state.alpha.device)
+    t = state.step
+    eta = 1.0 / (cfg.lambda_ * t)                # float32, as the reference's
+
+    active = idx < state.count
+    f = k_b.to(state.alpha.dtype) @ torch.where(active, state.alpha, 0.0)
+    margin = yb * f
+
+    # Pegasos shrink: w <- (1 - eta lambda) w.  Every fresh SV's |alpha| is
+    # 1/(lambda t) up to round-off, so this factor's last bit decides the
+    # min-|alpha| ties of maintenance.  The reference's compiled step rounds
+    # 1 - eta*lambda once (a fused multiply-add); the product of two float32
+    # values is exact in float64, so this rounds as the reference does.
+    shrink = (1.0 - eta.double() * float(np.float32(cfg.lambda_))).to(torch.float32)
+    alpha = state.alpha * shrink
+
+    # insert violators at the watermark: slot s takes the batch row whose
+    # position is s (each slot is hit at most once; non-violators hit none)
+    viol = margin < 1.0
+    pos = torch.where(viol, state.count + torch.cumsum(viol.to(torch.int32), 0) - 1, slots)
+    hit = pos[:, None] == idx[None, :]                                    # (batch, slots)
+    written = hit.any(0)
+    src = (hit.to(torch.int64) * torch.arange(hit.shape[0], device=idx.device)[:, None]).sum(0)
+    sv_x = torch.where(written[:, None], xb.to(state.sv_x.dtype).index_select(0, src),
+                       state.sv_x)
+    new_alpha = (eta * yb / cfg.batch_size).to(alpha.dtype)
+    alpha = torch.where(written, new_alpha.index_select(0, src), alpha)
+    n_new = viol.sum().to(torch.int32)
+    return SVMState(sv_x=sv_x, alpha=alpha, count=state.count + n_new, step=t + 1,
+                    n_inserts=state.n_inserts + n_new, n_merges=state.n_merges)
+
+
+def drain_budget(cfg: BSGDConfig, table, state: SVMState, *, impl: str = "auto") -> SVMState:
+    """The maintenance half of a train step: drain ``count`` back to the budget."""
+    sv_x, alpha, count, n_merges = budget_mod.run_maintenance(
+        state.sv_x, state.alpha, state.count, state.n_merges, cfg.gamma, table,
+        budget=cfg.budget, strategy=cfg.maintenance, method=cfg.method,
+        unroll=cfg.batch_size, impl=impl)
+    return state._replace(sv_x=sv_x, alpha=alpha, count=count, n_merges=n_merges)
+
+
+def train_step_from_rows(cfg: BSGDConfig, table, state: SVMState, xb, yb, k_b, *,
+                         impl: str = "auto") -> SVMState:
+    """Pegasos minibatch step + maintenance from precomputed kernel rows."""
+    state = insert_from_rows(cfg, state, xb, yb, k_b)
+    return drain_budget(cfg, table, state, impl=impl)
+
+
+def train_step(cfg: BSGDConfig, table, state: SVMState, xb, yb, *,
+               impl: str = "auto") -> SVMState:
+    """One minibatch step + budget maintenance on the state's device.
+
+    xb: (batch, dim), yb: (batch,) in {-1, +1}, on the state's device."""
+    k_b = kops.rbf_matrix(xb, state.sv_x, cfg.gamma, impl=impl)   # (batch, slots)
+    return train_step_from_rows(cfg, table, state, xb, yb, k_b, impl=impl)
+
+
+def train_epoch(cfg: BSGDConfig, table, state: SVMState, x, y, perm, *,
+                impl: str = "auto", device=None) -> SVMState:
+    """One pass over resident data in ``perm`` order.
+
+    Args:
+      table: the precomputed ``MergeLookupTable`` (``cfg.table()``), or None
+        for the gss methods.
+      x: (n, d) rows; y: (n,) labels in {-1, +1}; perm: (n,) row order (rows
+        past the last full ``batch_size`` multiple are dropped).  numpy
+        arrays or tensors; they are moved to the device.
+    """
+    dev = resolve_device(device)
+    state = _to(state, dev)
+    table = None if table is None else table.to(dev)
+    b = cfg.batch_size
+    order = _tensor(perm, dev, torch.int64)
+    steps = order.shape[0] // b
+    order = order[: steps * b]
+    xs = _tensor(x, dev).index_select(0, order)
+    ys = _tensor(y, dev).index_select(0, order)
+    for i in range(steps):
+        state = train_step(cfg, table, state, xs[i * b:(i + 1) * b], ys[i * b:(i + 1) * b],
+                           impl=impl)
+    return state
+
+
+def fit(cfg: BSGDConfig, x, y, *, epochs: int = 1, seed: int = 0, impl: str = "auto",
+        state: SVMState | None = None, device=None) -> SVMState:
+    """Train a budgeted SVM on in-memory data: shuffled epochs over (x, y).
+
+    Each epoch's permutation comes from a ``torch.Generator`` seeded with
+    ``seed`` (torch cannot reproduce the reference's ``jax.random`` draws;
+    pass a permutation to ``train_epoch`` to replay a given order).
+    """
+    dev = resolve_device(device)
+    table = cfg.table()
+    table = None if table is None else table.to(dev)
+    x, y = _tensor(x, dev), _tensor(y, dev)
+    if state is None:
+        state = init_state(cfg, x.shape[1], device=dev)
+    gen = torch.Generator().manual_seed(seed)
+    for _ in range(epochs):
+        perm = torch.randperm(x.shape[0], generator=gen)
+        state = train_epoch(cfg, table, state, x, y, perm, impl=impl, device=dev)
+    return state

@@ -1,0 +1,49 @@
+"""Synthetic binary-classification data over a numpy ``Generator``.
+
+Counterparts of ``repro.data.synthetic``'s generators with the same shapes
+and class structure.  They draw from numpy, not ``jax.random``, so one seed
+gives the same arrays to both packages (float32 rows, labels in {-1, +1}).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def make_blobs(rng: np.random.Generator, n: int, dim: int, *, sep: float = 2.0,
+               noise: float = 1.0):
+    """Two Gaussian blobs centred at -sep/2 and +sep/2 on every axis."""
+    y = np.where(rng.random(n) < 0.5, 1.0, -1.0).astype(np.float32)
+    centers = np.stack([np.full((dim,), -sep / 2), np.full((dim,), sep / 2)])
+    x = centers[((y + 1) // 2).astype(np.int64)] + noise * rng.standard_normal((n, dim))
+    perm = rng.permutation(n)
+    return x[perm].astype(np.float32), y[perm]
+
+
+def make_two_moons(rng: np.random.Generator, n: int, *, noise: float = 0.15, dim: int = 2):
+    """Two interleaved half circles; dimensions past 2 are pure noise."""
+    n_half = n // 2
+    t = np.linspace(0.0, np.pi, n_half)
+    x_a = np.stack([np.cos(t), np.sin(t)], axis=1)
+    x_b = np.stack([1.0 - np.cos(t), 0.5 - np.sin(t)], axis=1)
+    x = np.concatenate([x_a, x_b]) + noise * rng.standard_normal((2 * n_half, 2))
+    y = np.concatenate([np.ones(n_half), -np.ones(n_half)]).astype(np.float32)
+    if dim > 2:
+        x = np.concatenate([x, 0.5 * rng.standard_normal((2 * n_half, dim - 2))], axis=1)
+    perm = rng.permutation(2 * n_half)
+    return x[perm].astype(np.float32), y[perm]
+
+
+def make_susy_like(rng: np.random.Generator, n: int, dim: int = 18, *, flip: float = 0.2):
+    """Overlapping classes: a quadratic boundary in a random subspace plus label noise."""
+    x = rng.standard_normal((n, dim))
+    w = rng.standard_normal((dim,))
+    score = x @ w + 0.5 * np.sum(x[:, : dim // 2] ** 2, axis=1) - dim // 4
+    y = np.where(score > 0, 1.0, -1.0)
+    y = np.where(rng.random(n) < flip, -y, y)
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def train_test_split(x, y, *, test_frac: float = 0.2):
+    """``((x_train, y_train), (x_test, y_test))``: the first ``test_frac`` rows are the test set."""
+    n_test = int(x.shape[0] * test_frac)
+    return (x[n_test:], y[n_test:]), (x[:n_test], y[:n_test])

@@ -1,0 +1,105 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use and load them.
+
+Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles on its own
+into ``build/repro_torch/<name>-<digest>.so`` at the repository root
+(``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared``).
+The digest covers the source and its flags, so an edited source rebuilds and
+a stale library is never loaded.  ``build()`` starts one ``nvcc`` per source,
+all at once, and waits for every one of them; ``load()`` builds what is
+missing and opens it with ``ctypes``.
+
+Nothing here runs at import: the CPU-only test environment imports every
+module and has no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+_COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                 "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# Kernels whose float comparisons must round exactly as the plain PyTorch
+# versions do: no multiply-add contraction.
+SOURCES = {
+    "rbf_kernel": (),
+    "merge_lookup": ("-fmad=false",),
+    "gss": ("-fmad=false",),
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the port's CUDA kernels build on a "
+                           "machine with the CUDA toolkit (CUDA_HOME or /usr/local/cuda)")
+    return found
+
+
+def _flags(name: str) -> tuple[str, ...]:
+    return _COMMON_FLAGS + SOURCES[name]
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build(names=None) -> dict[str, str]:
+    """Compile every missing library in ``names`` (default: all), one ``nvcc``
+    per source, all started together.  Returns ``{name: ptxas report}`` for
+    what was compiled; raises ``RuntimeError`` with the compiler's output if
+    any build fails."""
+    names = list(SOURCES) if names is None else list(names)
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        out = library_path(name)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp, out)
+    reports, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (exit {proc.returncode})\n{log}")
+            tmp.unlink(missing_ok=True)
+            continue
+        os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
+        reports[name] = log
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if missing."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error (its cudaGetLastError)."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {status}")
+

@@ -1,0 +1,51 @@
+"""Launch wrapper for the hand-written RBF kernel-matrix kernel (``csrc/rbf_kernel.cu``).
+
+Replaces ``repro.kernels.rbf_kernel.rbf_matrix_pallas`` on the H100.  The
+wrapper checks devices, dtypes and contiguity, allocates the output on the
+current stream, launches, and raises if the launch was refused.  ``launches``
+counts the kernel launches made through :func:`rbf_matrix_cuda`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+launches = 0
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _lib():
+    lib = _build.load("rbf_kernel")
+    fn = lib.rbf_matrix_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, p, i, p, i, i, i, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def rbf_matrix_cuda(x: torch.Tensor, y: torch.Tensor, gamma: float) -> torch.Tensor:
+    """K[i, j] = exp(-gamma ||x_i - y_j||^2) on the card; x (n, d), y (m, d) -> (n, m) fp32."""
+    global launches
+    if not (x.is_cuda and y.is_cuda) or x.device != y.device:
+        raise ValueError("rbf_matrix_cuda needs x and y on one CUDA device")
+    if x.dtype not in _DTYPES or y.dtype not in _DTYPES:
+        raise TypeError(f"rbf_matrix_cuda takes fp32 or bf16, got {x.dtype}, {y.dtype}")
+    if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1]:
+        raise ValueError(f"shapes {tuple(x.shape)} and {tuple(y.shape)} do not pair")
+    x, y = x.contiguous(), y.contiguous()
+    n, d = x.shape
+    m = y.shape[0]
+    out = torch.empty((n, m), dtype=torch.float32, device=x.device)
+    if n == 0 or m == 0:
+        return out
+    fn = _lib()
+    status = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(),
+                int(y.dtype == torch.bfloat16), out.data_ptr(), n, m, d, float(gamma),
+                torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, "rbf_matrix")
+    launches += 1
+    return out
