@@ -21,7 +21,25 @@ non-zero exit code:
      read after;
   5. the first 2,000 steps of the same epoch again on the card and on the CPU
      (plain versions), with their integer state compared step by step;
-  6. a profiled window of training steps: device busy time per step.
+  6. a profiled window of training steps: device busy time per step;
+  7. the class-axis kernels (``multi_merge_scores``, ``merge_event``) against
+     their plain versions on the card, at the class-axis runs' shapes and at
+     ragged ones, fp32 and bf16 banks, with a forced removal fallback;
+  8. the one-vs-rest class axis at the widths of LIBSVM's multi-class
+     ``mnist`` (10 classes, 780 features, 60,000 training and 10,000 test
+     rows; a numpy stand-in, ``make_blobs_multiclass`` seed 0, sep 0.12,
+     noise 1.0), gamma 2^-11, lambda 1e-5, budget 500 per class, batch 8,
+     the kernel cache and Lookup-WD: run (a), one epoch with the fused
+     event engine (``maintenance_engine="pallas"``, the ``merge_event``
+     kernel), and run (b), ``MC_STEPS["b"]`` steps of the epoch (a ``CUT:``
+     line says so) with ``maintenance="multi-merge"``, merge_batch 4 (the
+     ``multi_merge_scores`` kernel).  Every launch counter is 0 before each
+     run and read after it;
+  9. the first 1,000 steps of run (a) on the card and on the CPU in lockstep,
+     integer state compared step by step (where it first differs, the cause
+     must be a near-tie: a margin on either side of 1, or tied event
+     scores), then the cache invariants I1-I3 of both;
+ 10. a short profiled window of each class-axis run.
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 It imports nothing from the JAX package.  Without a CUDA device, or without
@@ -46,6 +64,18 @@ FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 N_ROWS, DIM, BUDGET = 32_561, 123, 500
 REPLAY_STEPS = 2_000
 PROFILE_STEPS = 300
+# the class axis: LIBSVM multi-class mnist's widths and split
+MC_CLASSES, MC_DIM, MC_TRAIN, MC_TEST = 10, 780, 60_000, 10_000
+MC_GAMMA, MC_LAMBDA, MC_BUDGET, MC_BATCH = 2.0 ** -11, 1e-5, 500, 8
+MC_REPLAY_STEPS = 1_000
+# profiled steps per class-axis run: run (b) launches ~2,500 kernels a step,
+# which the profiler's bookkeeping makes slow to read back
+MC_PROFILE_STEPS = {"a": 40, "b": 8}
+# steps of each class-axis run; None is one whole epoch (MC_TRAIN // MC_BATCH).
+# Run (b) is cut to stay inside the time limit: a whole epoch took 475 s of
+# the script's ~890 s on one H100 (its masked multi-merge rounds launch
+# ~2,700 small kernels a step; see PERF.md)
+MC_STEPS = {"a": None, "b": 3_000}
 
 
 def check(cond: bool, what: str) -> None:
@@ -88,23 +118,34 @@ def time_call(fn, *, calls: int = 100, repeats: int = 7) -> float:
     return statistics.median(means)
 
 
-def device_ms(fn, kernel_substr: str, calls: int = 50):
+def device_ms(fn, kernel_substr: str, calls: int = 50, windows: int = 3):
     """Mean device time per launch (ms) of kernels whose name contains
-    ``kernel_substr``, from ``torch.profiler``; None if it reports none."""
+    ``kernel_substr``, from ``torch.profiler``; None if it reports none.  A
+    profiler window now and then returns no kernel events at all, so up to
+    ``windows`` windows are tried."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if kernel_substr in ev.key:
-            total += getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
-            count += ev.count
-    return (total / count / 1e3) if count and total > 0 else None
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for ev in prof.key_averages():
+            if kernel_substr in ev.key:
+                total += (getattr(ev, "device_time_total", 0.0)
+                          or getattr(ev, "cuda_time_total", 0.0))
+                count += ev.count
+        if count and total > 0:
+            return total / count / 1e3
+    return None
+
+
+def us(ms) -> str:
+    """Milliseconds as microseconds for a line, or "not measured"."""
+    return "not measured" if ms is None else f"{ms * 1e3:.2f} us"
 
 
 def bound_ms(n_bytes: float, n_flops: float):
@@ -163,7 +204,7 @@ def phase_kernels(ops, ref, table):
                                         "rbf_thin"))
             if (n, m, d) == (6512, 501, 123) and dtype == torch.float32:
                 dm = device_ms(lambda: ops.rbf_matrix(x, y, gamma, impl="cuda"), "rbf_tiled")
-                print(f"  rbf_tiled device time {dm and dm * 1e3} us")
+                print(f"  rbf_tiled device time {us(dm)}")
 
     # merge_scores: 501 candidates against the 400 x 400 table
     wd_table = table.wd_table.to(dev)
@@ -305,34 +346,455 @@ def phase_replay(core, data):
 
 def phase_profile(core, run):
     """Device busy time per step over PROFILE_STEPS lookup-wd steps."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     _, st, cfg = run
     rng = np.random.default_rng(SEED + 1)
     xs = torch.as_tensor(rng.standard_normal((PROFILE_STEPS, DIM)).astype(np.float32)).cuda()
     ys = torch.as_tensor(np.where(rng.random(PROFILE_STEPS) < 0.5, 1.0, -1.0)
                          .astype(np.float32)).cuda()
     table = cfg.table().to("cuda")
+    box = [st]
+
+    def step(i):
+        box[0] = core.train_step(cfg, table, box[0], xs[i:i + 1], ys[i:i + 1])
+
+    _profile(step, PROFILE_STEPS, "binary lookup-wd")
+
+
+def _event_state(gen, c, s, d, sv_dtype, dev, budget, removal_class=None):
+    """Random class states for one event round: a consistent cache, mixed signs,
+    counts on both sides of ``budget``; ``removal_class`` has one positive SV
+    (its min-|alpha| slot) among negatives, so its event falls back to removal."""
+    from repro_torch.core import kernel_cache
+    sv = torch.randn(c, s, d, generator=gen).to(dev, sv_dtype)
+    kmat = kernel_cache.exact_cache(sv, MC_GAMMA)
+    kmat = torch.where(torch.eye(s, dtype=torch.bool, device=dev), 1.0,
+                       0.5 * (kmat + kmat.transpose(1, 2))).contiguous()
+    alpha = (torch.randn(c, s, generator=gen).abs() * 0.1 + 0.01).to(dev)
+    alpha = alpha * torch.where(torch.rand(c, s, generator=gen) < 0.4, -1.0, 1.0).to(dev)
+    count = torch.randint(max(budget - 3, 2), s + 1, (c,), generator=gen).to(dev, torch.int32)
+    count[0] = s                                      # one class full and over budget
+    if removal_class is not None:
+        alpha[removal_class] = -alpha[removal_class].abs()
+        alpha[removal_class, 1] = 0.001
+        count[removal_class] = s
+    alpha = torch.where(torch.arange(s, device=dev) < count[:, None], alpha, 0.0).contiguous()
+    return sv.contiguous(), alpha, kmat, count, count > budget
+
+
+def _multi_merge_bound(alpha, kappa, a_min, table):
+    """Least time of one multi_merge_scores call on these inputs: each input
+    and output once, the table cells the coordinates touch, ~38 operations a
+    candidate (coordinates, two bilinear mixes, the score)."""
+    from repro_torch.kernels import ref
+    rows, s = kappa.reshape(-1, kappa.shape[-1]).shape
+    a_rows = alpha.reshape(-1, s).repeat_interleave(rows // alpha.reshape(-1, s).shape[0], 0)
+    m, k = ref.merge_coords(a_min.reshape(rows, 1), a_rows, kappa.reshape(rows, s))
+    g0, g1 = table.wd_table.shape
+    i0 = torch.clamp(torch.floor(m * (g0 - 1)).long(), 0, g0 - 2)
+    j0 = torch.clamp(torch.floor(k * (g1 - 1)).long(), 0, g1 - 2)
+    cells = torch.cat([i0 * g1 + j0, i0 * g1 + j0 + 1, (i0 + 1) * g1 + j0,
+                       (i0 + 1) * g1 + j0 + 1]).unique().numel()
+    n_bytes = alpha.numel() * 4 + rows * s * (4 + 1) + rows * 4 + 2 * 4 * cells + 2 * 4 * rows * s
+    return bound_ms(n_bytes, 38.0 * rows * s) + (cells,)
+
+
+def phase_class_kernels(ops, ref, table):
+    """multi_merge_scores and merge_event against their plain versions on the card."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 7)
+    tab = table.to(dev)
+    records = {}
+
+    # kernel 4: (C, P, s) rows, bit-equal to the plain version at every shape
+    for (c, p, s) in [(MC_CLASSES, 4, MC_BUDGET + MC_BATCH), (3, 4, 37), (1, 5, 129), (2, 1, 1000)]:
+        alpha = (torch.randn(c, s, generator=gen).abs() * 0.2 + 0.01).to(dev)
+        alpha = alpha * torch.where(torch.rand(c, s, generator=gen) < 0.3, -1.0, 1.0).to(dev)
+        kappa = torch.rand(c, p, s, generator=gen).to(dev)
+        valid = (torch.rand(c, p, s, generator=gen) < 0.8).to(dev)
+        a_min = (alpha[:, :p] * 0.5).contiguous()
+        wd, h = ops.multi_merge_scores(alpha, kappa, valid, a_min, tab, impl="cuda")
+        wd_p, h_p = ops.multi_merge_scores(alpha, kappa, valid, a_min, tab, impl="ref")
+        wd_f, h_f = ops.multi_merge_scores(alpha[0], kappa[0], valid[0], a_min[0], tab,
+                                           impl="cuda")
+        equal = (bool(torch.equal(wd[valid], wd_p[valid])) and bool(torch.equal(h, h_p))
+                 and bool(torch.equal(wd_f, wd[0])) and bool(torch.equal(h_f, h[0])))
+        invalid_ok = bool((wd[~valid] >= ref.NO_PARTNER).all() and (wd_p[~valid] >= ref.NO_PARTNER).all())
+        err = max((wd - wd_p)[valid].abs().max().item(), (h - h_p).abs().max().item())
+        line = (f"multi_merge_scores C={c} P={p} s={s}: bit-equal {equal} (wd at valid slots, h) "
+                f"invalid>=NO_PARTNER {invalid_ok} max_abs_err {err:.3e} (tol 0)")
+        if (c, p, s) == (MC_CLASSES, 4, MC_BUDGET + MC_BATCH):
+            k_ms = time_call(lambda: ops.multi_merge_scores(alpha, kappa, valid, a_min, tab,
+                                                            impl="cuda"))
+            p_ms = time_call(lambda: ops.multi_merge_scores(alpha, kappa, valid, a_min, tab,
+                                                            impl="ref"))
+            # one library call for the two bilinear lookups alone (timed, never used)
+            m_c, k_c = ref.merge_coords(a_min[..., None], alpha[:, None, :], kappa)
+            grid = torch.stack([2 * k_c - 1, 2 * m_c - 1], dim=-1).view(1, 1, -1, 2)
+            img = torch.stack([tab.wd_table, tab.h_table]).view(1, 2, *tab.wd_table.shape)
+            lib = F.grid_sample(img, grid, mode="bilinear", align_corners=True).view(2, c, p, s)
+            lib_err = (lib[1] - h_p).abs().max().item()
+            l_ms = time_call(lambda: F.grid_sample(img, grid, mode="bilinear",
+                                                   align_corners=True))
+            b_ms, b_by, cells = _multi_merge_bound(alpha, kappa, a_min, tab)
+            dm = device_ms(lambda: ops.multi_merge_scores(alpha, kappa, valid, a_min, tab,
+                                                          impl="cuda"), "multi_merge_scores_kernel")
+            line += (f" kernel {k_ms * 1e3:.2f} us (device {us(dm)}) plain "
+                     f"{p_ms * 1e3:.2f} us grid_sample (2 channels) {l_ms * 1e3:.2f} us "
+                     f"(its err vs plain h {lib_err:.2e}) bound {b_ms * 1e3:.4f} us ({b_by}, "
+                     f"{cells} table cells)")
+            records["multi_merge_scores"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                                                 bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+                                                 device_ms=dm)
+        print(line)
+        check(equal and invalid_ok, f"multi_merge_scores C={c} P={p} s={s} against its plain version")
+
+    # merge_scores with one fixed partner per row (the class axis's layout)
+    c, s = MC_CLASSES, MC_BUDGET + MC_BATCH
+    alpha = (torch.randn(c, s, generator=gen).abs() * 0.2 + 0.01).to(dev)
+    kappa = torch.rand(c, s, generator=gen).to(dev)
+    valid = (torch.rand(c, s, generator=gen) < 0.8).to(dev)
+    a_min = alpha[:, 0] * 0.5
+    wd, interp = ops.merge_scores(alpha, kappa, valid, a_min, tab.wd_table, impl="cuda")
+    wd_p, interp_p = ops.merge_scores(alpha, kappa, valid, a_min, tab.wd_table, impl="ref")
+    equal = bool(torch.equal(wd[valid], wd_p[valid])) and bool(torch.equal(interp, interp_p))
+    print(f"merge_scores rows C={c} s={s}: bit-equal {equal} (wd at valid slots, interp)")
+    check(equal and bool((wd[~valid] >= ref.NO_PARTNER).all()),
+          "merge_scores with one fixed partner per row against its plain version")
+
+    # kernel 5: one event round, fp32 and bf16 banks, mixed over, a removal class
+    tol = {"kmat": 1e-6, "alpha": 1e-6}
+    for sv_dtype in (torch.float32, torch.bfloat16):
+        for (c, s, d, budget) in [(MC_CLASSES, MC_BUDGET + MC_BATCH, MC_DIM, MC_BUDGET),
+                                  (3, 37, 5, 33), (4, 129, 33, 120)]:
+            st = _event_state(gen, c, s, d, sv_dtype, dev, budget, removal_class=c - 1)
+            sv0, al0, km0, count, over = st
+            got = [t.clone() for t in (sv0, al0, km0)]
+            want = [t.clone() for t in (sv0, al0, km0)]
+            dec = torch.full((c, 3), -1, dtype=torch.int32, device=dev)
+            dec_p = dec.clone()
+            ops.merge_event(*got, count, over, tab, decisions=dec, impl="cuda")
+            ops.merge_event(*want, count, over, tab, decisions=dec_p, impl="ref")
+            torch.cuda.synchronize()
+            same_dec = bool(torch.equal(dec, dec_p))
+            removal_ok = int(dec[c - 1, 2]) == 0
+            untouched = all(bool(torch.equal(g[~over], t[~over])) for g, t in zip(got, (sv0, al0, km0)))
+            e_km = (got[2] - want[2]).abs().max().item()
+            e_al = ((got[1] - want[1]).abs() / want[1].abs().clamp(min=1e-30)).max().item()
+            e_sv = (got[0].float() - want[0].float()).abs().max().item()
+            # one bf16 rounding of a z whose fp32 value differs in its last bit
+            sv_tol = 1e-6 if sv_dtype == torch.float32 else 2.0 ** -7 * want[0].float().abs().max().item()
+            inv_ok = True
+            km = got[2]
+            for q in range(c):
+                n = int(count[q]) - int(over[q])
+                blk = km[q, :n, :n]
+                inv_ok &= bool(torch.equal(blk, blk.T)) and bool((torch.diagonal(blk) == 1).all())
+            print(f"merge_event C={c} S={s} D={d} {str(sv_dtype)[6:]} over {int(over.sum())}/{c}: "
+                  f"decisions equal {same_dec} (removal fallback {removal_ok}) non-over classes "
+                  f"bitwise unchanged {untouched} max err kmat {e_km:.3e} (tol {tol['kmat']}) "
+                  f"alpha rel {e_al:.3e} (tol {tol['alpha']}) sv_x {e_sv:.3e} (tol {sv_tol:.3e}) "
+                  f"I2/I3 exact {inv_ok}")
+            check(same_dec and removal_ok and untouched and inv_ok and e_km <= tol["kmat"]
+                  and e_al <= tol["alpha"] and e_sv <= sv_tol,
+                  f"merge_event C={c} S={s} D={d} {sv_dtype} against its plain version")
+            if (c, s, d) == (MC_CLASSES, MC_BUDGET + MC_BATCH, MC_DIM) and sv_dtype == torch.float32:
+                records["merge_event"] = dict(max_abs_err=max(e_km, e_sv),
+                                              **_time_event(ops, tab, st))
+                r = records["merge_event"]
+                print(f"  merge_event timing: kernel {r['ms'] * 1e3:.2f} us per round (device "
+                      f"{us(r['device_ms'])} per launch) plain "
+                      f"{r['plain_ms'] * 1e3:.2f} us bound {r['bound_ms'] * 1e3:.4f} us "
+                      f"({r['bound_by']}); library call: none")
+    return records
+
+
+def _time_event(ops, tab, st, rounds: int = 50, repeats: int = 7):
+    """Median over ``repeats`` of the mean ms per event round (one merge_event
+    launch and the ``count -= over`` the engine pairs with it), each repeat
+    from the same starting state; the device time per launch; the bound."""
+    sv0, al0, km0, count0, _ = st
+    work = [t.clone() for t in (sv0, al0, km0)]
+    budget = int(count0.min()) - rounds - 2
+
+    def reset():
+        for w, t in zip(work, (sv0, al0, km0)):
+            w.copy_(t)
+        return count0.clone()
+
+    def timed(impl):
+        means = []
+        for rep in range(repeats + 1):
+            count = reset()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(rounds):
+                over = count > budget
+                ops.merge_event(*work, count, over, tab, impl=impl)
+                count = count - over.to(count.dtype)
+            end.record()
+            torch.cuda.synchronize()
+            if rep:                                   # the first repeat warms up
+                means.append(start.elapsed_time(end) / rounds)
+        return statistics.median(means)
+
+    k_ms, p_ms = timed("cuda"), timed("ref")
+    box = [reset()]
+
+    def one_round():
+        over = box[0] > budget
+        ops.merge_event(*work, box[0], over, tab, impl="cuda")
+        box[0] = box[0] - over.to(box[0].dtype)
+
+    dm = device_ms(one_round, "merge_event_kernel", calls=rounds)
+    b_ms, b_by = _event_bound(sv0, al0, km0, count0, count0 > budget, tab)
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                device_ms=dm)
+
+
+def _event_bound(sv_x, alpha, kmat, count, over, tab):
+    """Least time of one merge_event round on these inputs.  Bytes: count and
+    over of every class; per executing class its alpha and three cache rows
+    (kappa, partner, last) read over its active slots, two rows and two
+    columns written there, three SV rows read and two written, and the four
+    h-table cells at its winner; once, the unique WD-table cells that the
+    valid candidates of all executing classes touch.  Operations: ~25 a valid
+    candidate (coordinates, bilinear mix, score), ~10 an active slot (the
+    argmin and the z row) and 3 a feature (z)."""
+    from repro_torch.kernels import ref
+    c, s, d = sv_x.shape
+    dev = alpha.device
+    idx = torch.arange(s, device=dev)
+    ar = torch.arange(c, device=dev)
+    active = idx < count[:, None]
+    i_min = torch.where(active, alpha.abs(), torch.inf).argmin(dim=1)
+    a_min = alpha[ar, i_min]
+    valid = (active & (alpha * a_min[:, None] > 0) & (idx != i_min[:, None])) & over[:, None]
+    m, k = ref.merge_coords(a_min[:, None], alpha, kmat[ar, i_min])
+    g0, g1 = tab.wd_table.shape
+    i0 = torch.clamp(torch.floor(m[valid] * (g0 - 1)).long(), 0, g0 - 2)
+    j0 = torch.clamp(torch.floor(k[valid] * (g1 - 1)).long(), 0, g1 - 2)
+    cells = torch.cat([i0 * g1 + j0, i0 * g1 + j0 + 1, (i0 + 1) * g1 + j0,
+                       (i0 + 1) * g1 + j0 + 1]).unique().numel()
+    n_over = int(over.sum())
+    n_act = int(torch.where(over, count, 0).sum())
+    n_bytes = (c * (4 + 1) + n_act * 4 * (1 + 3 + 4) + n_over * 5 * d * sv_x.element_size()
+               + n_over * 4 * 4 + cells * 4)
+    n_ops = 25.0 * int(valid.sum()) + 10.0 * n_act + 3.0 * d * n_over
+    return bound_ms(n_bytes, n_ops)
+
+
+def mnist_standin(make_blobs_multiclass):
+    """The class-axis data at LIBSVM multi-class mnist's widths; the first
+    MC_TEST rows are the test set.  Also prints the nearest-class-mean accuracy
+    and the median squared distance that the gamma follows."""
+    x, y = make_blobs_multiclass(np.random.default_rng(SEED), MC_TRAIN + MC_TEST, MC_DIM,
+                                 MC_CLASSES, sep=0.12, noise=1.0)
+    xte, yte, xtr, ytr = x[:MC_TEST], y[:MC_TEST], x[MC_TEST:], y[MC_TEST:]
+    dev = torch.device("cuda")
+    xt, yt = torch.as_tensor(xtr, device=dev), torch.as_tensor(ytr, device=dev).long()
+    means = torch.zeros(MC_CLASSES, MC_DIM, device=dev).index_add_(0, yt, xt)
+    means /= torch.bincount(yt, minlength=MC_CLASSES)[:, None]
+    pred = torch.cdist(torch.as_tensor(xte, device=dev), means).argmin(dim=1).cpu().numpy()
+    pairs = np.random.default_rng(SEED + 1).integers(0, MC_TRAIN, (2, 4000))
+    med = float(np.median(((xtr[pairs[0]] - xtr[pairs[1]]) ** 2).sum(axis=1)))
+    print(f"mnist-width stand-in: train {xtr.shape} test {xte.shape}, nearest-class-mean "
+          f"accuracy {float((pred == yte).mean()):.4f}, median squared distance {med:.1f} "
+          f"(gamma 2^-11 = 1/{2 ** 11})")
+    return (xtr, ytr), (xte, yte)
+
+
+def _mc_config(mc, run: str):
+    knobs = (dict(maintenance_engine="pallas") if run == "a"
+             else dict(maintenance="multi-merge", merge_batch=4))
+    return mc.MulticlassSVMConfig.create(MC_CLASSES, budget=MC_BUDGET, lambda_=MC_LAMBDA,
+                                         gamma=MC_GAMMA, batch_size=MC_BATCH, method="lookup-wd",
+                                         use_kernel_cache=True, **knobs)
+
+
+
+def _mc_order(steps: int):
+    perm = torch.randperm(MC_TRAIN, generator=torch.Generator().manual_seed(SEED))
+    return perm[: steps * MC_BATCH]
+
+
+def phase_class_run(mc, ops, kernel_cache, data, run: str):
+    """One class-axis run (a: merge_event engine, b: multi-merge), the launch
+    counters set to 0 just before it and read just after."""
+    (xtr, ytr), (xte, yte) = data
+    dev = torch.device("cuda")
+    cfg = _mc_config(mc, run)
+    steps = MC_STEPS[run] or MC_TRAIN // MC_BATCH
+    if steps < MC_TRAIN // MC_BATCH:
+        print(f"CUT: run ({run}) trains {steps} of the epoch's {MC_TRAIN // MC_BATCH} steps")
+    table = cfg.table().to(dev)
+    st = mc.init_multiclass_state(cfg, MC_DIM, device=dev)
+    x, y = torch.as_tensor(xtr, device=dev), torch.as_tensor(ytr, device=dev)
+    order = _mc_order(steps)
+    ops.reset_launch_counts()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(PROFILE_STEPS):
-            st = core.train_step(cfg, table, st, xs[i:i + 1], ys[i:i + 1])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # kernel rows only: key_averages() also lists the aten ops that launched them
-    rows = [(ev.self_device_time_total, ev.count, ev.key) for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
-    busy_us = sum(r[0] for r in rows)
-    launches = sum(r[1] for r in rows)
-    check(launches > 0, "the profiler saw no kernel on the card")
-    print(f"profile: {PROFILE_STEPS} steps, wall {wall / PROFILE_STEPS * 1e6:.1f} us/step "
-          f"(profiler on), device busy {busy_us / PROFILE_STEPS:.2f} us/step, "
+    t0 = time.perf_counter()
+    st = mc.train_epoch_multiclass(cfg, table, st, x, y, order, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    acc = float(mc.accuracy_multiclass(st, xte, yte, MC_GAMMA, device=dev))
+    launches = ops.launch_counts()
+    res = dict(steps=steps, seconds=secs, us_per_step=secs / steps * 1e6, accuracy=acc,
+               count=st.count.tolist(), n_merges=st.n_merges.tolist(),
+               n_inserts=st.n_inserts.tolist(), launches=launches)
+    print(f"class-axis run ({run}) {'merge_event engine' if run == 'a' else 'multi-merge'}: "
+          f"{json.dumps(res)}")
+    kernel = "merge_event" if run == "a" else "multi_merge_scores"
+    check(st.sv_x.is_cuda and st.kmat.is_cuda, "the class-axis state lives on the card")
+    check(max(res["count"]) <= MC_BUDGET, f"run ({run}): a count above the budget")
+    check(min(res["n_merges"]) > 0, f"run ({run}): a class with no merge event")
+    check(launches[kernel] > 0, f"run ({run}): {kernel} never launched")
+    check(launches["rbf_matrix"] > 0, f"run ({run}): rbf_matrix never launched")
+    check(acc >= 0.80, f"run ({run}): accuracy {acc} below the 0.80 sanity floor")
+    if run == "a":
+        worst = kernel_cache.invariant_errors(st.kmat, st.sv_x, st.count, MC_GAMMA)
+        print(f"run (a) end of epoch: worst I1 error per class "
+              f"{[float(f'{e:.3e}') for e in worst]}")
+    return res, st, cfg
+
+
+def _near_tie(mc, cfg, tabs, prev, xs, ys):
+    """Why the card and CPU steps part, from the states before the step: a
+    batch row whose margin lies on either side of 1 on the two devices, or
+    an event round whose decisions differ where the two smallest |alpha| or
+    the two smallest WD scores tie to 1e-5.  Returns ``(explained, text)``."""
+    from repro_torch.core import bsgd
+    from repro_torch.kernels import ops, ref
+
+    b = cfg.binary
+    margins, rounds = {}, {}
+    for dev, st in prev.items():
+        k_b = mc.class_kernel_rows(st.sv_x, xs[dev], b.gamma)
+        y_ovr = mc.ovr_targets(ys[dev], cfg.n_classes)
+        act = torch.arange(st.alpha.shape[1], device=dev) < st.count[:, None]
+        margins[dev] = (y_ovr * (k_b @ torch.where(act, st.alpha, 0.0)[..., None])[..., 0]).cpu()
+        mid = bsgd.insert_from_rows(b, st, xs[dev], y_ovr, k_b,
+                                    ops.rbf_matrix(xs[dev], xs[dev], b.gamma))
+        sv, al, km, count = mid.sv_x.clone(), mid.alpha.clone(), mid.kmat.clone(), mid.count
+        rounds[dev] = []
+        for _ in range(b.batch_size):
+            over = count > b.budget
+            snap = (al.cpu(), km.cpu(), count.cpu())
+            dec = torch.full((cfg.n_classes, 3), -1, dtype=torch.int32, device=dev)
+            ops.merge_event(sv, al, km, count, over, tabs[dev], decisions=dec)
+            rounds[dev].append((dec.cpu(), snap))
+            count = count - over.to(count.dtype)
+    m_c, m_p = margins["cuda"], margins["cpu"]
+    split = torch.nonzero((m_c < 1) != (m_p < 1))
+    if split.numel():
+        q, r = split[0].tolist()
+        gap = abs(float(m_c[q, r]) - float(m_p[q, r]))
+        return gap < 1e-3, (f"margin near-tie: class {q} batch row {r} margin card "
+                            f"{float(m_c[q, r])!r} cpu {float(m_p[q, r])!r}")
+    for k, ((d_c, snap), (d_p, _)) in enumerate(zip(rounds["cuda"], rounds["cpu"])):
+        differ = torch.nonzero((d_c != d_p).any(dim=1)).flatten().tolist()
+        if not differ:
+            continue
+        q = differ[0]
+        al, km, cnt = snap[0][q], snap[1][q], int(snap[2][q])
+        a_abs = torch.where(torch.arange(al.shape[0]) < cnt, al.abs(), torch.inf)
+        a2 = torch.sort(a_abs).values[:2]
+        i_min = int(torch.argmin(a_abs))
+        m, kap = ref.merge_coords(al[i_min], al, km[i_min])
+        valid = (a_abs < torch.inf) & (al * al[i_min] > 0) & (torch.arange(al.shape[0]) != i_min)
+        wd = torch.where(valid, (al[i_min] + al) ** 2 * ref.bilinear_lookup(
+            tabs["cpu"].wd_table, m, kap), torch.inf)
+        w2 = torch.sort(wd).values[:2]
+        tie = bool(a2[1] - a2[0] <= 1e-5 * a2[0]) or bool(w2[1] - w2[0] <= 1e-5 * w2[0])
+        return tie, (f"event near-tie: round {k} class {q} decisions card {d_c[q].tolist()} cpu "
+                     f"{d_p[q].tolist()}; two smallest |alpha| {a2.tolist()}, WD {w2.tolist()}")
+    return False, "no margin or event decision differs"
+
+
+def phase_class_replay(mc, kernel_cache, data):
+    """The first MC_REPLAY_STEPS steps of run (a) on the card and on the CPU in
+    lockstep; where their integer state first differs, the cause must be a
+    near-tie (``_near_tie``).  Then the cache invariants of both."""
+    (xtr, ytr), _ = data
+    cfg = _mc_config(mc, "a")
+    order = _mc_order(MC_REPLAY_STEPS)
+    devs = ("cuda", "cpu")
+    tabs = {dev: cfg.table().to(dev) for dev in devs}
+    st = {dev: mc.init_multiclass_state(cfg, MC_DIM, device=dev) for dev in devs}
+    xs = {dev: torch.as_tensor(xtr).index_select(0, order).to(dev) for dev in devs}
+    ys = {dev: torch.as_tensor(ytr).long().index_select(0, order).to(dev) for dev in devs}
+    ints = lambda s: torch.stack([s.count, s.n_inserts, s.n_merges]).cpu()
+    first = None
+    t0 = time.perf_counter()
+    for i in range(MC_REPLAY_STEPS):
+        sl = slice(i * MC_BATCH, (i + 1) * MC_BATCH)
+        prev = dict(st)
+        for dev in devs:
+            st[dev] = mc.train_step_multiclass(cfg, tabs[dev], st[dev], xs[dev][sl], ys[dev][sl])
+        if first is None and not torch.equal(ints(st["cuda"]), ints(st["cpu"])):
+            first = i
+            explained, why = _near_tie(mc, cfg, tabs, prev, {d: xs[d][sl] for d in devs},
+                                       {d: ys[d][sl] for d in devs})
+            print(f"class replay: first step whose integer state differs: {i}; {why}")
+            check(explained, f"class replay parts at step {i} without a near-tie: {why}")
+    if first is None:
+        print("class replay: first step whose integer state differs: None")
+    print(f"class replay: {MC_REPLAY_STEPS} steps on both in {time.perf_counter() - t0:.3f} s; "
+          f"n_merges card {st['cuda'].n_merges.tolist()} cpu {st['cpu'].n_merges.tolist()}")
+    for dev, s in st.items():
+        kernel_cache.check_invariants(s.kmat, s.sv_x, s.count, MC_GAMMA, tol=5e-5,
+                                      context=f"replay {dev}")
+        worst = kernel_cache.invariant_errors(s.kmat, s.sv_x, s.count, MC_GAMMA)
+        print(f"class replay {dev}: cache invariants I1 (tol 5e-5, worst {worst.max():.3e}), "
+              f"I2, I3 hold")
+
+
+def _profile(step, steps: int, label: str):
+    """Device busy time per step over ``steps`` calls of ``step(i)``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    for _ in range(3):      # a window now and then returns no kernel events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                step(i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # kernel rows only: key_averages() also lists the aten ops that launched them
+        rows = [(ev.self_device_time_total, ev.count, ev.key) for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+        busy_us = sum(r[0] for r in rows)
+        launches = sum(r[1] for r in rows)
+        if launches:
+            break
+    check(launches > 0, "the profiler saw no kernel on the card in three windows")
+    print(f"profile {label}: {steps} steps, wall {wall / steps * 1e6:.1f} us/step "
+          f"(profiler on), device busy {busy_us / steps:.2f} us/step, "
           f"idle share {1 - busy_us / (wall * 1e6):.4f}, "
-          f"kernels {launches / PROFILE_STEPS:.1f} per step")
+          f"kernels {launches / steps:.1f} per step")
     for dt, count, key in sorted(rows, reverse=True)[:10]:
-        print(f"  {dt / PROFILE_STEPS:8.3f} us/step  {count / PROFILE_STEPS:5.2f}/step  {key[:90]}")
+        print(f"  {dt / steps:8.3f} us/step  {count / steps:5.2f}/step  {key[:90]}")
+
+
+def phase_class_profile(mc, runs, data):
+    (xtr, ytr), _ = data
+    n = max(MC_PROFILE_STEPS.values()) * MC_BATCH
+    xs = torch.as_tensor(xtr[:n]).cuda()
+    ys = torch.as_tensor(ytr[:n]).long().cuda()
+    for run, (_, st, cfg) in runs.items():
+        table = cfg.table().to("cuda")
+        box = [st]
+
+        def step(i, cfg=cfg, table=table, box=box):
+            sl = slice(i * MC_BATCH, (i + 1) * MC_BATCH)
+            box[0] = mc.train_step_multiclass(cfg, table, box[0], xs[sl], ys[sl])
+
+        _profile(step, MC_PROFILE_STEPS[run], f"class-axis run ({run})")
 
 
 def main() -> int:
@@ -345,8 +807,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(src))
     from repro_torch import core
+    from repro_torch.core import kernel_cache
+    from repro_torch.core import multiclass as mc
     from repro_torch.core.lookup import default_table
-    from repro_torch.data import make_blobs, train_test_split
+    from repro_torch.data import make_blobs, make_blobs_multiclass, train_test_split
     from repro_torch.kernels import _build, ops, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -358,6 +822,8 @@ def main() -> int:
         phase_build(_build)
     with Phase("3 kernels vs plain"):
         records = phase_kernels(ops, ref, default_table())
+    with Phase("7 class-axis kernels vs plain"):
+        records.update(phase_class_kernels(ops, ref, default_table()))
     with Phase("data"):
         data = adult_standin(make_blobs, train_test_split)
         print(f"ADULT stand-in: train {data[0][0].shape} test {data[1][0].shape}")
@@ -367,12 +833,28 @@ def main() -> int:
         phase_replay(core, data)
     with Phase("6 profile"):
         phase_profile(core, runs["lookup-wd"])
+    with Phase("class-axis data"):
+        mc_data = mnist_standin(make_blobs_multiclass)
+    mc_runs = {}
+    for run in ("a", "b"):
+        with Phase(f"8 class-axis run ({run})"):
+            mc_runs[run] = phase_class_run(mc, ops, kernel_cache, mc_data, run)
+    with Phase("9 class-axis card vs CPU replay"):
+        phase_class_replay(mc, kernel_cache, mc_data)
+    with Phase("10 class-axis profile"):
+        phase_class_profile(mc, mc_runs, mc_data)
 
+    counts["merge_event"] = mc_runs["a"][0]["launches"]["merge_event"]
+    counts["multi_merge_scores"] = mc_runs["b"][0]["launches"]["multi_merge_scores"]
     meta = {
         "rbf_matrix": ("src/repro_torch/csrc/rbf_kernel.cu", "src/repro/kernels/rbf_kernel.py:57"),
         "merge_scores": ("src/repro_torch/csrc/merge_lookup.cu",
                          "src/repro/kernels/merge_lookup.py:65"),
         "gss": ("src/repro_torch/csrc/gss.cu", "src/repro/kernels/gss.py:48"),
+        "multi_merge_scores": ("src/repro_torch/csrc/merge_multi.cu",
+                               "src/repro/kernels/merge_multi.py:68"),
+        "merge_event": ("src/repro_torch/csrc/merge_event.cu",
+                        "src/repro/kernels/merge_event.py:193"),
     }
     kernels = [dict(name=name, route="cuda", source=src_path, replaces=replaces,
                     launches=counts[name], **records[name])

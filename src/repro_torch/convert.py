@@ -28,19 +28,18 @@ def _from_numpy(a) -> torch.Tensor:
 def state_from_numpy(arrays: Mapping[str, np.ndarray], *, device=None) -> SVMState:
     """An ``SVMState`` on ``device`` (default the card) from numpy leaves.
 
-    A kernel cache (``kmat`` not None) is refused: the port does not carry
-    the cache yet (ROADMAP.md Queue 1 item 5)."""
-    if arrays.get("kmat") is not None:
-        raise NotImplementedError("states with a kernel cache are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 5)")
+    ``kmat`` (the kernel cache) may be missing or None.  Stacked states (a
+    leading class axis on every leaf) convert the same way."""
     dev = resolve_device(device)
-    return SVMState(*(_from_numpy(arrays[name]).to(dev) for name in SVMState._fields))
+    return SVMState(*(None if arrays.get(name) is None else _from_numpy(arrays[name]).to(dev)
+                      for name in SVMState._fields))
 
 
 def state_to_numpy(state: SVMState) -> dict[str, np.ndarray]:
-    """``{field: numpy array}`` on the host; bf16 leaves become float32."""
+    """``{field: numpy array}`` on the host; bf16 leaves become float32, and
+    ``kmat`` is left out when the state has no cache."""
     return {name: (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
-            for name, t in zip(SVMState._fields, state)}
+            for name, t in zip(SVMState._fields, state) if t is not None}
 
 
 def table_from_numpy(h, wd) -> MergeLookupTable:

@@ -8,6 +8,10 @@ PyTorch counterpart of ``repro.core.bsgd`` for binary problems:
   * Pegasos step t: eta_t = 1/(lambda t); alpha *= (1 - eta_t lambda); every
     margin violator of the minibatch is inserted with alpha = eta_t y / batch.
   * ``batch_size = 1`` is the paper's setting.
+  * With ``use_kernel_cache`` the state carries the SV-SV kernel matrix
+    ``kmat`` (``core.kernel_cache``), and maintenance reads its kappa rows.
+  * Every state leaf may carry a leading class axis (``core.multiclass``);
+    ``insert_from_rows`` takes either form.
 
 The state stays on its device for a whole epoch: a step reads nothing back
 to the host.  Entry points (``init_state``, ``fit``, ``train_epoch``,
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from . import budget as budget_mod
+from . import kernel_cache
 from .lookup import MergeLookupTable, default_table
 from ..kernels import ops as kops
 
@@ -36,6 +41,7 @@ class SVMState(NamedTuple):
     step: torch.Tensor       # () int32 — Pegasos t (starts at 1)
     n_inserts: torch.Tensor  # () int32 — margin violations so far
     n_merges: torch.Tensor   # () int32 — budget-maintenance events so far
+    kmat: torch.Tensor | None = None  # (slots, slots) fp32 SV-SV kernel cache, or None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,11 +51,11 @@ class BSGDConfig:
     The fields and their validation are ``repro.core.bsgd.BSGDConfig``'s, so
     one config means the same in both packages.  Valid settings that this
     port does not carry yet raise ``NotImplementedError`` naming the
-    ROADMAP.md item: ``use_kernel_cache=True``, ``maintenance`` other than
-    ``merge``/``removal``, ``maintenance_engine="pallas"``,
-    ``step_engine="pallas"`` and ``solver="bdca"``.  Maintenance always runs
-    ``batch_size`` masked events per step (the reference's
-    ``unroll_maintenance`` form), whichever ``unroll_maintenance`` says.
+    ROADMAP.md item: ``step_engine="pallas"`` and ``solver="bdca"``.
+    ``maintenance_engine="pallas"`` runs the fused ``merge_event`` kernel.
+    Maintenance always runs ``batch_size`` masked events (or rounds) per
+    step (the reference's ``unroll_maintenance`` form), whichever
+    ``unroll_maintenance`` says.
     """
 
     budget: int = 100
@@ -129,13 +135,7 @@ class BSGDConfig:
 
     def _check_ported(self):
         unported = [
-            (self.use_kernel_cache, "use_kernel_cache=True", "Queue 1 item 5"),
-            (self.maintenance not in budget_mod.PORTED_STRATEGIES,
-             f"maintenance={self.maintenance!r}", "Queue 1 item 5"),
-            (self.maintenance_engine == "pallas", "maintenance_engine='pallas'",
-             "Queue 1 item 6 and Queue 2 kernel 5"),
-            (self.step_engine == "pallas", "step_engine='pallas'",
-             "Queue 1 item 6 and Queue 2 kernel 6"),
+            (self.step_engine == "pallas", "step_engine='pallas'", "Queue 2 kernel 6"),
             (self.solver == "bdca", "solver='bdca'", "Queue 1 item 9"),
         ]
         for hit, knob, item in unported:
@@ -168,7 +168,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _to(state: SVMState, dev: torch.device) -> SVMState:
-    return SVMState(*(t.to(dev) for t in state))
+    return SVMState(*(None if t is None else t.to(dev) for t in state))
 
 
 def _tensor(a, dev, dtype=torch.float32) -> torch.Tensor:
@@ -183,7 +183,8 @@ def init_state(cfg: BSGDConfig, dim: int, *, device=None) -> SVMState:
                          device=dev),
         alpha=torch.zeros((cfg.slots,), dtype=getattr(torch, cfg.dtype), device=dev),
         count=zero(), step=torch.ones((), dtype=torch.int32, device=dev),
-        n_inserts=zero(), n_merges=zero())
+        n_inserts=zero(), n_merges=zero(),
+        kmat=kernel_cache.init_cache(cfg.slots, device=dev) if cfg.use_kernel_cache else None)
 
 
 def decision_function(state: SVMState, x, gamma, *, impl: str = "auto", device=None):
@@ -206,18 +207,24 @@ def accuracy(state: SVMState, x, y, gamma, *, impl: str = "auto", device=None):
     return (pred == _tensor(y, dev)).to(torch.float32).mean()
 
 
-def insert_from_rows(cfg: BSGDConfig, state: SVMState, xb, yb, k_b) -> SVMState:
+def insert_from_rows(cfg: BSGDConfig, state: SVMState, xb, yb, k_b, k_bb=None) -> SVMState:
     """The Pegasos shrink + violator insert half of a step (no maintenance).
 
-    ``k_b = k(xb, sv_x)`` of shape (batch, slots).  ``count`` may exceed the
-    budget by up to ``batch_size`` afterwards; ``drain_budget`` drains it."""
-    slots = state.alpha.shape[0]
-    idx = torch.arange(slots, device=state.alpha.device)
+    Binary: ``yb`` (batch,) and ``k_b = k(xb, sv_x)`` (batch, slots).  Stacked
+    (every state leaf with a leading class axis): ``yb`` (C, batch) and
+    ``k_b`` (C, batch, slots).  ``k_bb = k(xb, xb)`` (batch, batch) is needed
+    only with the kernel cache.  ``count`` may exceed the budget by up to
+    ``batch_size`` afterwards; ``drain_budget`` drains it."""
+    slots = state.alpha.shape[-1]
     t = state.step
     eta = 1.0 / (cfg.lambda_ * t)                # float32, as the reference's
 
-    active = idx < state.count
-    f = k_b.to(state.alpha.dtype) @ torch.where(active, state.alpha, 0.0)
+    idx = budget_mod.kref.iota(slots, state.alpha.device)
+    count = state.count[..., None]
+    active = idx < count
+    a_act = torch.where(active, state.alpha, 0.0)
+    k = k_b.to(state.alpha.dtype)
+    f = k @ a_act if a_act.dim() == 1 else (k @ a_act[..., None])[..., 0]
     margin = yb * f
 
     # Pegasos shrink: w <- (1 - eta lambda) w.  Every fresh SV's |alpha| is
@@ -226,37 +233,48 @@ def insert_from_rows(cfg: BSGDConfig, state: SVMState, xb, yb, k_b) -> SVMState:
     # 1 - eta*lambda once (a fused multiply-add); the product of two float32
     # values is exact in float64, so this rounds as the reference does.
     shrink = (1.0 - eta.double() * float(np.float32(cfg.lambda_))).to(torch.float32)
-    alpha = state.alpha * shrink
+    alpha = state.alpha * shrink[..., None]
 
-    # insert violators at the watermark: slot s takes the batch row whose
-    # position is s (each slot is hit at most once; non-violators hit none)
+    # insert violators at the watermark: slot q takes the batch row whose
+    # position is q (each slot is hit at most once; non-violators go to
+    # ``slots`` and hit none).  ``xb`` is shared by every class.
     viol = margin < 1.0
-    pos = torch.where(viol, state.count + torch.cumsum(viol.to(torch.int32), 0) - 1, slots)
-    hit = pos[:, None] == idx[None, :]                                    # (batch, slots)
-    written = hit.any(0)
-    src = (hit.to(torch.int64) * torch.arange(hit.shape[0], device=idx.device)[:, None]).sum(0)
-    sv_x = torch.where(written[:, None], xb.to(state.sv_x.dtype).index_select(0, src),
-                       state.sv_x)
-    new_alpha = (eta * yb / cfg.batch_size).to(alpha.dtype)
-    alpha = torch.where(written, new_alpha.index_select(0, src), alpha)
-    n_new = viol.sum().to(torch.int32)
+    pos = torch.where(viol, count + torch.cumsum(viol.to(torch.int32), -1) - 1, slots)
+    written, src = torch.max(pos.unsqueeze(-1) == idx, dim=-2)        # (..., slots)
+    sv_x = torch.where(written.unsqueeze(-1), xb.to(state.sv_x.dtype)[src], state.sv_x)
+    new_alpha = (eta.unsqueeze(-1) * yb / cfg.batch_size).to(alpha.dtype)
+    alpha = torch.where(written, new_alpha.gather(-1, src), alpha)
+    n_new = viol.sum(-1).to(torch.int32)
+
+    kmat = state.kmat
+    if cfg.use_kernel_cache:
+        k_bb = k_bb if pos.dim() == 1 else k_bb.expand(*pos.shape, xb.shape[0])
+        kmat = kernel_cache.insert_rows(kmat, pos, k_b, k_bb)
     return SVMState(sv_x=sv_x, alpha=alpha, count=state.count + n_new, step=t + 1,
-                    n_inserts=state.n_inserts + n_new, n_merges=state.n_merges)
+                    n_inserts=state.n_inserts + n_new, n_merges=state.n_merges, kmat=kmat)
 
 
 def drain_budget(cfg: BSGDConfig, table, state: SVMState, *, impl: str = "auto") -> SVMState:
-    """The maintenance half of a train step: drain ``count`` back to the budget."""
-    sv_x, alpha, count, n_merges = budget_mod.run_maintenance(
-        state.sv_x, state.alpha, state.count, state.n_merges, cfg.gamma, table,
-        budget=cfg.budget, strategy=cfg.maintenance, method=cfg.method,
-        unroll=cfg.batch_size, impl=impl)
-    return state._replace(sv_x=sv_x, alpha=alpha, count=count, n_merges=n_merges)
+    """The maintenance half of a train step: drain ``count`` back to the budget
+    through the configured strategy, or the fused event engine
+    (``maintenance_engine="pallas"``, lifted to one class)."""
+    if cfg.maintenance_engine == "pallas":
+        sv_x, alpha, kmat, count, n_merges = (a[0] for a in budget_mod.run_maintenance_classes(
+            state.sv_x[None], state.alpha[None], state.kmat[None], state.count[None],
+            state.n_merges[None], table, budget=cfg.budget, impl=impl, unroll=cfg.batch_size))
+    else:
+        sv_x, alpha, kmat, count, n_merges = budget_mod.run_maintenance(
+            state.sv_x, state.alpha, state.kmat, state.count, state.n_merges, cfg.gamma, table,
+            budget=cfg.budget, strategy=cfg.maintenance, method=cfg.method,
+            merge_batch=cfg.merge_batch, unroll=cfg.batch_size, impl=impl)
+    return state._replace(sv_x=sv_x, alpha=alpha, count=count, n_merges=n_merges, kmat=kmat)
 
 
-def train_step_from_rows(cfg: BSGDConfig, table, state: SVMState, xb, yb, k_b, *,
+def train_step_from_rows(cfg: BSGDConfig, table, state: SVMState, xb, yb, k_b, k_bb=None, *,
                          impl: str = "auto") -> SVMState:
-    """Pegasos minibatch step + maintenance from precomputed kernel rows."""
-    state = insert_from_rows(cfg, state, xb, yb, k_b)
+    """Pegasos minibatch step + maintenance from precomputed kernel rows
+    (``k_bb`` only with the kernel cache)."""
+    state = insert_from_rows(cfg, state, xb, yb, k_b, k_bb)
     return drain_budget(cfg, table, state, impl=impl)
 
 
@@ -266,7 +284,8 @@ def train_step(cfg: BSGDConfig, table, state: SVMState, xb, yb, *,
 
     xb: (batch, dim), yb: (batch,) in {-1, +1}, on the state's device."""
     k_b = kops.rbf_matrix(xb, state.sv_x, cfg.gamma, impl=impl)   # (batch, slots)
-    return train_step_from_rows(cfg, table, state, xb, yb, k_b, impl=impl)
+    k_bb = kops.rbf_matrix(xb, xb, cfg.gamma, impl=impl) if cfg.use_kernel_cache else None
+    return train_step_from_rows(cfg, table, state, xb, yb, k_b, k_bb, impl=impl)
 
 
 def train_epoch(cfg: BSGDConfig, table, state: SVMState, x, y, perm, *,

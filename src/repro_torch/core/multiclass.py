@@ -1,0 +1,196 @@
+"""One-vs-rest multi-class BSGD: the class axis as a leading state dimension.
+
+PyTorch counterpart of the in-memory part of ``repro.core.multiclass``.  C
+independent binary problems share one ``SVMState`` whose every tensor carries
+a leading ``(C,)`` axis, and train in lockstep:
+
+  * the margin rows of all classes come from ONE ``rbf_matrix`` call against
+    the flattened ``(C * slots, dim)`` SV bank (``class_kernel_rows``);
+  * the Pegasos update and budget maintenance are batched tensor ops over
+    the class axis (the reference's ``jax.vmap``), with one lookup table
+    shared by every class;
+  * with ``maintenance_engine="pallas"`` maintenance is the fused event
+    engine, one ``merge_event`` launch per round for all classes
+    (``budget.run_maintenance_classes``).
+
+Prediction is the argmax over the C decision functions, again from one
+kernel call (``kernels.ops.class_scores``).  ``fit_multiclass_loop`` trains
+the classes one after the other: the baseline the batched engine is measured
+against.  The streaming entry points (``train_chunk_multiclass`` and those built
+on it) are not ported yet (ROADMAP.md Queue 1 item 8).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import budget as budget_mod
+from .bsgd import (BSGDConfig, SVMState, _tensor, _to, fit, init_state, insert_from_rows,
+                   resolve_device)
+from ..kernels import ops as kops
+
+
+@dataclasses.dataclass(frozen=True)
+class MulticlassSVMConfig:
+    """C one-vs-rest copies of a binary ``BSGDConfig`` (labels are integer
+    ids in [0, n_classes)); one lookup table serves every class."""
+
+    n_classes: int
+    binary: BSGDConfig
+
+    def __post_init__(self):
+        if self.n_classes < 2:
+            raise ValueError(f"n_classes={self.n_classes} < 2")
+
+    @property
+    def slots(self) -> int:
+        return self.binary.slots
+
+    def table(self):
+        return self.binary.table()
+
+    @staticmethod
+    def create(n_classes: int, **kw) -> "MulticlassSVMConfig":
+        """Build from binary hyperparameters: ``create(5, budget=100, ...)``."""
+        return MulticlassSVMConfig(n_classes=n_classes, binary=BSGDConfig(**kw))
+
+
+def ovr_targets(y, n_classes: int, dtype=torch.float32):
+    """Integer class labels (n,) -> one-vs-rest targets (C, n) in {-1, +1}."""
+    y = torch.as_tensor(y).to(torch.int64)
+    onehot = torch.arange(n_classes, device=y.device)[:, None] == y[None, :]
+    return torch.where(onehot, 1.0, -1.0).to(dtype)
+
+
+def check_labels(y, n_classes: int) -> None:
+    """Raise unless every label is an integer in [0, n_classes) (reads ``y`` once)."""
+    y = torch.as_tensor(y)
+    y_min, y_max = int(y.min()), int(y.max())
+    if y_min < 0 or y_max >= n_classes:
+        raise ValueError(f"class labels must be integers in [0, {n_classes}); got range "
+                         f"[{y_min}, {y_max}] — remap 1-based labels (e.g. y - 1) first")
+
+
+def init_multiclass_state(cfg: MulticlassSVMConfig, dim: int, *, device=None) -> SVMState:
+    """Stacked ``SVMState``: every leaf gains a leading ``(C,)`` axis (its own
+    memory per class: the event kernel updates the stack in place)."""
+    st = init_state(cfg.binary, dim, device=device)
+    c = cfg.n_classes
+    return SVMState(*(None if t is None else t.expand(c, *t.shape).clone() for t in st))
+
+
+def class_kernel_rows(sv_x, x, gamma, *, impl: str = "auto"):
+    """``k(x, sv_c)`` for every class from ONE kernel call: sv_x (C, slots, dim),
+    x (n, dim) -> (C, n, slots)."""
+    c, slots, dim = sv_x.shape
+    k = kops.rbf_matrix(x, sv_x.reshape(c * slots, dim), gamma, impl=impl)
+    return k.view(x.shape[0], c, slots).transpose(0, 1).contiguous()
+
+
+def decision_function_multiclass(state: SVMState, x, gamma, *, impl: str = "auto",
+                                 device=None):
+    """Per-class scores f_c(x); x (n, d) -> (C, n), from one kernel launch."""
+    dev = resolve_device(device)
+    state = _to(state, dev)
+    active = torch.arange(state.alpha.shape[-1], device=dev)[None, :] < state.count[:, None]
+    alpha = torch.where(active, state.alpha, 0.0)
+    return kops.class_scores(_tensor(x, dev), state.sv_x, alpha, gamma, impl=impl)
+
+
+def predict_multiclass(state: SVMState, x, gamma, **kw):
+    """argmax over the C one-vs-rest decision functions; (n,) int32."""
+    return torch.argmax(decision_function_multiclass(state, x, gamma, **kw), dim=0).to(torch.int32)
+
+
+def accuracy_multiclass(state: SVMState, x, y, gamma, *, impl: str = "auto", device=None):
+    """Share of rows whose predicted class is ``y`` (a 0-d tensor)."""
+    dev = resolve_device(device)
+    pred = predict_multiclass(state, x, gamma, impl=impl, device=dev)
+    return (pred == _tensor(y, dev, torch.int32)).to(torch.float32).mean()
+
+
+def train_step_multiclass(cfg: MulticlassSVMConfig, table, state: SVMState, xb, yb, *,
+                          impl: str = "auto") -> SVMState:
+    """One lockstep step for all C one-vs-rest problems.
+
+    xb: (batch, dim); yb: (batch,) integer class ids in [0, C), on the
+    state's device.  One kernel call gives every class's margin rows; the
+    shrink and insert run batched over the class axis, then maintenance
+    drains every class: the fused event engine with
+    ``maintenance_engine="pallas"``, else the configured strategy batched
+    over the classes."""
+    b = cfg.binary
+    k_b = class_kernel_rows(state.sv_x, xb, b.gamma, impl=impl)       # (C, batch, slots)
+    k_bb = kops.rbf_matrix(xb, xb, b.gamma, impl=impl) if b.use_kernel_cache else None
+    y_ovr = ovr_targets(yb, cfg.n_classes, dtype=getattr(torch, b.dtype))
+    mid = insert_from_rows(b, state, xb, y_ovr, k_b, k_bb)
+    if b.maintenance_engine == "pallas":
+        # mid's sv_x, alpha and kmat are this step's own fresh tensors: the
+        # in-place event rounds take them over, with no copy
+        out = budget_mod.event_rounds_(
+            mid.sv_x, mid.alpha, mid.kmat, mid.count, mid.n_merges, table, budget=b.budget,
+            impl=impl, unroll=b.batch_size)
+    else:
+        out = budget_mod.run_maintenance_stacked(
+            mid.sv_x, mid.alpha, mid.kmat, mid.count, mid.n_merges, b.gamma, table,
+            budget=b.budget, strategy=b.maintenance, method=b.method, merge_batch=b.merge_batch,
+            impl=impl, unroll=b.batch_size)
+    sv_x, alpha, kmat, count, n_merges = out
+    return mid._replace(sv_x=sv_x, alpha=alpha, kmat=kmat, count=count, n_merges=n_merges)
+
+
+def train_epoch_multiclass(cfg: MulticlassSVMConfig, table, state: SVMState, x, y, perm, *,
+                           impl: str = "auto", device=None) -> SVMState:
+    """One pass over resident (x, integer y) in ``perm`` order (rows past the
+    last full ``batch_size`` multiple are dropped); inputs move to the device."""
+    dev = resolve_device(device)
+    state = _to(state, dev)
+    table = None if table is None else table.to(dev)
+    bs = cfg.binary.batch_size
+    order = _tensor(perm, dev, torch.int64)
+    steps = order.shape[0] // bs
+    order = order[: steps * bs]
+    xs = _tensor(x, dev).index_select(0, order)
+    ys = _tensor(y, dev, torch.int64).index_select(0, order)
+    for i in range(steps):
+        state = train_step_multiclass(cfg, table, state, xs[i * bs:(i + 1) * bs],
+                                      ys[i * bs:(i + 1) * bs], impl=impl)
+    return state
+
+
+def fit_multiclass(cfg: MulticlassSVMConfig, x, y, *, epochs: int = 1, seed: int = 0,
+                   impl: str = "auto", state: SVMState | None = None,
+                   device=None) -> SVMState:
+    """Train C one-vs-rest problems in lockstep on in-memory data.
+
+    Shuffled epochs as in ``bsgd.fit`` (one ``torch.Generator`` seeded with
+    ``seed``); labels are validated up front; ``state`` resumes a stacked
+    model."""
+    check_labels(y, cfg.n_classes)
+    dev = resolve_device(device)
+    table = cfg.table()
+    table = None if table is None else table.to(dev)
+    x, y = _tensor(x, dev), _tensor(y, dev, torch.int64)
+    if state is None:
+        state = init_multiclass_state(cfg, x.shape[1], device=dev)
+    gen = torch.Generator().manual_seed(seed)
+    for _ in range(epochs):
+        perm = torch.randperm(x.shape[0], generator=gen)
+        state = train_epoch_multiclass(cfg, table, state, x, y, perm, impl=impl, device=dev)
+    return state
+
+
+def fit_multiclass_loop(cfg: MulticlassSVMConfig, x, y, *, epochs: int = 1, seed: int = 0,
+                        impl: str = "auto", device=None) -> SVMState:
+    """Loop-over-classes baseline: C binary fits on the one-vs-rest labels, one
+    after the other, then stacked.  The same seed gives the same permutations
+    as ``fit_multiclass``, so both train the same model."""
+    check_labels(y, cfg.n_classes)
+    dev = resolve_device(device)
+    y_ovr = ovr_targets(_tensor(y, dev, torch.int64), cfg.n_classes,
+                        dtype=getattr(torch, cfg.binary.dtype))
+    states = [fit(cfg.binary, x, y_ovr[c], epochs=epochs, seed=seed, impl=impl, device=dev)
+              for c in range(cfg.n_classes)]
+    return SVMState(*(None if leaves[0] is None else torch.stack(leaves)
+                      for leaves in zip(*states)))

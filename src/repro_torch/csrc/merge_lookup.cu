@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel src/repro/kernels/merge_lookup.py::merge_scores_pallas
 // (body _merge_score_kernel).  For one fixed partner with coefficient a_min
-// and every candidate j:
+// (one per row of candidates: a row is a class on the class axis) and every
+// candidate j:
 //   m_j   = clip(a_min / (a_min + alpha_j), 0, 1)   (denominator 0 -> 1)
 //   kap_j = clip(kappa_j, 0, 1)
 //   interp_j = bilinear interpolation of table at (m_j, kap_j)
@@ -35,11 +36,12 @@ __global__ void merge_scores_kernel(const float* __restrict__ alpha,
                                     const float* __restrict__ kappa,
                                     const unsigned char* __restrict__ valid,
                                     const float* __restrict__ a_min_ptr,
-                                    const float* __restrict__ table, int g0, int g1, int s,
-                                    float* __restrict__ wd_out, float* __restrict__ interp_out) {
+                                    const float* __restrict__ table, int g0, int g1, int n,
+                                    int row_len, float* __restrict__ wd_out,
+                                    float* __restrict__ interp_out) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= s) return;
-  const float a_min = __ldg(a_min_ptr);
+  if (j >= n) return;
+  const float a_min = __ldg(a_min_ptr + j / row_len);
   const float denom = a_min + alpha[j];
   const float m = fminf(fmaxf(a_min / (denom == 0.0f ? 1.0f : denom), 0.0f), 1.0f);
   const float kap = fminf(fmaxf(kappa[j], 0.0f), 1.0f);
@@ -64,17 +66,17 @@ __global__ void merge_scores_kernel(const float* __restrict__ alpha,
 
 }  // namespace
 
-// alpha, kappa: (s,) fp32; valid: (s,) bytes (0/1); a_min: one fp32 on the
-// device (read there, so the caller never syncs); table: (g0, g1) fp32.
-// Returns cudaGetLastError().
+// alpha, kappa: (rows, row_len) fp32, n = rows * row_len; valid: the same in
+// bytes (0/1); a_min: (rows,) fp32 on the device (read there, so the caller
+// never syncs); table: (g0, g1) fp32.  Returns cudaGetLastError().
 extern "C" int merge_scores_launch(const void* alpha, const void* kappa, const void* valid,
-                                   const void* a_min, const void* table, int g0, int g1, int s,
-                                   void* wd_out, void* interp_out, void* stream) {
-  const int blocks = (s + THREADS - 1) / THREADS;
+                                   const void* a_min, const void* table, int g0, int g1, int n,
+                                   int row_len, void* wd_out, void* interp_out, void* stream) {
+  const int blocks = (n + THREADS - 1) / THREADS;
   merge_scores_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(alpha), static_cast<const float*>(kappa),
       static_cast<const unsigned char*>(valid), static_cast<const float*>(a_min),
-      static_cast<const float*>(table), g0, g1, s, static_cast<float*>(wd_out),
+      static_cast<const float*>(table), g0, g1, n, row_len, static_cast<float*>(wd_out),
       static_cast<float*>(interp_out));
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-"""Synthetic binary-classification data over a numpy ``Generator``.
+"""Synthetic classification data over a numpy ``Generator``.
 
 Counterparts of ``repro.data.synthetic``'s generators with the same shapes
 and class structure.  They draw from numpy, not ``jax.random``, so one seed
@@ -15,6 +15,19 @@ def make_blobs(rng: np.random.Generator, n: int, dim: int, *, sep: float = 2.0,
     y = np.where(rng.random(n) < 0.5, 1.0, -1.0).astype(np.float32)
     centers = np.stack([np.full((dim,), -sep / 2), np.full((dim,), sep / 2)])
     x = centers[((y + 1) // 2).astype(np.int64)] + noise * rng.standard_normal((n, dim))
+    perm = rng.permutation(n)
+    return x[perm].astype(np.float32), y[perm]
+
+
+def make_blobs_multiclass(rng: np.random.Generator, n: int, dim: int, n_classes: int = 5, *,
+                          sep: float = 3.0, noise: float = 1.0):
+    """C Gaussian blobs at centres drawn ``sep * N(0, I)``; labels are int32 in [0, C).
+
+    In dim >= ~4 the distance between two centres concentrates near
+    ``sep * sqrt(2 dim)`` while a point's spread along it is ``noise``."""
+    centers = sep * rng.standard_normal((n_classes, dim))
+    y = rng.integers(0, n_classes, n).astype(np.int32)
+    x = centers[y] + noise * rng.standard_normal((n, dim))
     perm = rng.permutation(n)
     return x[perm].astype(np.float32), y[perm]
 

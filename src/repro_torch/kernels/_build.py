@@ -31,6 +31,8 @@ SOURCES = {
     "rbf_kernel": (),
     "merge_lookup": ("-fmad=false",),
     "gss": ("-fmad=false",),
+    "merge_multi": ("-fmad=false",),
+    "merge_event": ("-fmad=false",),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -15,10 +15,12 @@ from __future__ import annotations
 import torch
 
 from . import gss as gss_kernel
-from . import merge_lookup, rbf_kernel, ref
+from . import merge_event as merge_event_kernel
+from . import merge_lookup, merge_multi, rbf_kernel, ref
 
 IMPLS = ("auto", "cuda", "ref")
-_KERNELS = {"rbf_matrix": rbf_kernel, "merge_scores": merge_lookup, "gss": gss_kernel}
+_KERNELS = {"rbf_matrix": rbf_kernel, "merge_scores": merge_lookup, "gss": gss_kernel,
+            "multi_merge_scores": merge_multi, "merge_event": merge_event_kernel}
 
 
 def _use_kernel(impl: str, t: torch.Tensor) -> bool:
@@ -45,29 +47,66 @@ def rbf_matrix(x, y, gamma, *, impl: str = "auto"):
     return ref.rbf_matrix(x, y, gamma)
 
 
+def rbf_per_class(x, y, gamma, *, impl: str = "auto"):
+    """K[c, i, j] = k(x[c, i], y[c, j]); x (C, n, d), y (C, m, d) -> (C, n, m).
+
+    On the card one ``rbf_matrix`` launch covers every class: with C > 1 it
+    scores every class's rows against the whole flattened bank and keeps the
+    diagonal blocks, so it does C times the work it keeps.  Only the
+    uncached class-axis paths call it (kappa rows of ``merge`` and
+    ``multi-merge`` without the kernel cache); the cached ones read their
+    rows from the cache."""
+    if not _use_kernel(impl, x):
+        return ref.rbf_matrix(x, y, gamma)
+    c, n, d = x.shape
+    if c == 1:
+        return rbf_kernel.rbf_matrix_cuda(x[0], y[0], gamma)[None]
+    k = rbf_kernel.rbf_matrix_cuda(x.reshape(c * n, d), y.reshape(-1, d), gamma)
+    ar = torch.arange(c, device=x.device)
+    return k.view(c, n, c, -1)[ar, :, ar]
+
+
 def rbf_row(sv_x, x, gamma, *, impl: str = "auto"):
-    """kappa_row[j] = k(x, sv_x[j]); sv_x (s, d), x (d,) -> (s,).
+    """kappa_row[j] = k(x, sv_x[j]); sv_x (s, d), x (d,) -> (s,), or one row per
+    class: sv_x (C, s, d), x (C, d) -> (C, s).
 
     On the card this is the matmul-form kernel with n = 1 (as the reference
     does on the TPU); on the CPU the direct-difference form (as the
     reference does off the TPU)."""
     if _use_kernel(impl, sv_x):
-        return rbf_kernel.rbf_matrix_cuda(x.reshape(1, -1), sv_x, gamma)[0]
+        if sv_x.dim() == 2:
+            return rbf_kernel.rbf_matrix_cuda(x.reshape(1, -1), sv_x, gamma)[0]
+        return rbf_per_class(x[:, None, :], sv_x, gamma, impl=impl)[:, 0]
     return ref.rbf_row(sv_x, x, gamma)
 
 
-def merge_scores(alpha, kappa_row, valid, a_min, table, *, impl: str = "auto"):
-    """``(wd, interp)`` per candidate for one fixed partner.
+def class_scores(x, sv_x, alpha, gamma, *, impl: str = "auto"):
+    """All-class decision scores (C, n) from one ``rbf_matrix`` call.
 
-    alpha, kappa_row, valid (bool): (s,); a_min: one-element tensor on the
-    same device; table: (G, G).  ``interp`` is the table interpolated at
-    each candidate's ``(m, kappa)``; ``wd = (a_min + alpha)^2 * interp`` at
-    valid slots, and a value >= ``ref.NO_PARTNER`` at invalid ones (+inf on
-    the plain path, 3.4e38 from the kernel)."""
+    x: (n, d); sv_x: (C, slots, d); alpha: (C, slots), inactive slots zeroed
+    by the caller.  The class axis folds into the SV axis, so the kernel sees
+    one (n, C * slots) block; the per-class contraction over slots follows
+    in ``alpha``'s dtype.  Oracle: ``ref.class_scores`` (one call per class)."""
+    c, slots, d = sv_x.shape
+    k = rbf_matrix(x, sv_x.reshape(c * slots, d), gamma, impl=impl)
+    return torch.einsum("ncs,cs->cn", k.view(x.shape[0], c, slots).to(alpha.dtype), alpha)
+
+
+def merge_scores(alpha, kappa_row, valid, a_min, table, *, impl: str = "auto"):
+    """``(wd, interp)`` per candidate for one fixed partner, or one per row.
+
+    alpha, kappa_row, valid (bool): (s,) with a_min a one-element tensor, or
+    rows (R, s) with a_min (R,), on the same device; table: (G, G).
+    ``interp`` is the table interpolated at each candidate's ``(m, kappa)``;
+    ``wd = (a_min + alpha)^2 * interp`` at valid slots, and a value >=
+    ``ref.NO_PARTNER`` at invalid ones (+inf on the plain path, 3.4e38 from
+    the kernel)."""
     if _use_kernel(impl, alpha):
-        return merge_lookup.merge_scores_cuda(alpha, kappa_row, valid, a_min.reshape(1), table)
-    wd = ref.merge_scores(alpha, kappa_row, valid, a_min, table)
-    m, kap = ref.merge_coords(a_min, alpha, kappa_row)
+        a_min = a_min if a_min.dim() == 1 else a_min.reshape(-1)
+        return merge_lookup.merge_scores_cuda(alpha, kappa_row, valid, a_min, table)
+    a = a_min.reshape(-1, 1) if alpha.dim() == 2 else a_min
+    wd = ref.merge_scores(alpha, kappa_row, valid, a, table)
+    m, kap = ref.merge_coords(a, alpha, kappa_row)
     return wd, ref.bilinear_lookup(table, m, kap)
 
 
@@ -76,3 +115,47 @@ def gss_solve(m, kappa, *, n_iters: int, impl: str = "auto"):
     if _use_kernel(impl, m):
         return gss_kernel.gss_cuda(m.float(), kappa.float(), n_iters)
     return ref.gss(m, kappa, n_iters)
+
+
+def multi_merge_scores(alpha, kappa_rows, valid, a_min, table, *, impl: str = "auto"):
+    """``(wd, h)`` for P fixed merge partners at once, both tables in one pass.
+
+    Flat: alpha (s,); kappa_rows, valid (P, s); a_min (P,) -> (P, s).
+    Class-batched: alpha (C, s); kappa_rows, valid (C, P, s); a_min (C, P)
+    -> (C, P, s), the (C, P) pairs folded onto the rows of ONE kernel launch
+    with class c's alpha shared by its P rows.  ``table`` is a
+    ``MergeLookupTable``.  Invalid slots get WD +inf (plain) or 3.4e38
+    (kernel), argmin-safe either way."""
+    if not _use_kernel(impl, alpha):
+        fn = ref.multi_merge_scores_classes if kappa_rows.dim() == 3 else ref.multi_merge_scores
+        return fn(alpha, kappa_rows, valid, a_min, table.h_table, table.wd_table)
+    shape = kappa_rows.shape
+    s = shape[-1]
+    wd, h = merge_multi.multi_merge_scores_cuda(
+        alpha.reshape(-1, s), kappa_rows.reshape(-1, s), valid.reshape(-1, s), a_min.reshape(-1),
+        table.h_table, table.wd_table)
+    return wd.view(shape), h.view(shape)
+
+
+def merge_event(sv_x, alpha, kmat, count, over, table, *, decisions=None, impl: str = "auto"):
+    """One maintenance-event round over stacked classes, IN PLACE.
+
+    sv_x: (C, s, d) fp32 or bf16; alpha: (C, s) fp32; kmat: (C, s, s) fp32
+    kernel cache; count: (C,) int32; over: (C,) bool; ``table`` a
+    ``MergeLookupTable``.  Every class with ``over`` set runs one Lookup-WD
+    merge event (argmin-|alpha| fixed partner, cached kappa row, best
+    same-sign partner, removal fallback) exactly as ``core.budget._merge_once``
+    would on its slice; classes with ``over`` clear are not written.
+    ``decisions`` ((C, 3) int32 or None) receives each executing class's
+    ``(i_min, j_star, merged)``.
+
+    Both the kernel and the plain version update ``sv_x``, ``alpha`` and
+    ``kmat`` in place (the TPU kernel aliases its outputs to its inputs) and
+    return them; clone the inputs first to keep them.  The caller owns
+    ``count -= over`` and the round schedule
+    (``core.budget.run_maintenance_classes``)."""
+    if _use_kernel(impl, sv_x):
+        return merge_event_kernel.merge_event_cuda(sv_x, alpha, kmat, count, over,
+                                                   table.h_table, table.wd_table, decisions)
+    return ref.merge_event(sv_x, alpha, kmat, count, over, table.h_table, table.wd_table,
+                           decisions)

@@ -123,11 +123,16 @@ def test_convert_round_trip_gives_equal_predictions(data):
     got = tbsgd.predict(ts, xte, 2.0, device=CPU).numpy()
     np.testing.assert_array_equal(got, want)
     back = convert.state_to_numpy(ts)
+    assert "kmat" not in back and ts.kmat is None          # no cache, none carried
     for name in back:
         np.testing.assert_array_equal(back[name], leaves[name])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        convert.state_from_numpy({**leaves, "kmat": np.zeros((17, 17), np.float32)},
-                                 device=CPU)
+    # a cached state carries its kernel cache both ways
+    jc = _jax_epoch({**kw, "use_kernel_cache": True}, data)
+    cached = {k: np.asarray(v) for k, v in jc._asdict().items()}
+    back = convert.state_to_numpy(convert.state_from_numpy(cached, device=CPU))
+    assert back.keys() == cached.keys()
+    for name in back:
+        np.testing.assert_array_equal(back[name], cached[name])
 
 
 def test_fit_trains_on_cpu_when_asked(data):
@@ -161,18 +166,30 @@ def test_no_cuda_without_explicit_cpu_raises(entry, data, monkeypatch):
 
 
 @pytest.mark.parametrize("knob,item", [
-    (dict(use_kernel_cache=True), "Queue 1 item 5"),
-    (dict(use_kernel_cache=True, maintenance="multi-merge"), "Queue 1 item 5"),
-    (dict(use_kernel_cache=True, maintenance="quantized"), "Queue 1 item 5"),
-    (dict(use_kernel_cache=True, maintenance_engine="pallas"), "Queue 1 item"),
-    (dict(use_kernel_cache=True, step_engine="pallas"), "Queue 1 item"),
-    (dict(use_kernel_cache=True, solver="bdca"), "Queue 1 item"),
-    (dict(maintenance="multi-merge"), "Queue 1 item 5"),
+    (dict(use_kernel_cache=True, step_engine="pallas"), "Queue 2 kernel 6"),
+    (dict(use_kernel_cache=True, step_engine="pallas", maintenance="multi-merge"),
+     "Queue 2 kernel 6"),
+    (dict(use_kernel_cache=True, solver="bdca"), "Queue 1 item 9"),
+    (dict(use_kernel_cache=True, solver="bdca", maintenance_engine="pallas"), "Queue 1 item 9"),
 ])
 def test_unported_knobs_raise_not_implemented(knob, item):
     jbsgd.BSGDConfig(**knob)                 # valid in the reference
     with pytest.raises(NotImplementedError, match=item):
         tbsgd.BSGDConfig(**knob)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(use_kernel_cache=True), dict(use_kernel_cache=True, maintenance="multi-merge"),
+    dict(use_kernel_cache=True, maintenance="quantized"),
+    dict(use_kernel_cache=True, maintenance="removal-project"),
+    dict(use_kernel_cache=True, maintenance_engine="pallas"), dict(maintenance="multi-merge"),
+])
+def test_ported_knobs_construct(knob):
+    cfg = tbsgd.BSGDConfig(**knob)
+    st = tbsgd.init_state(cfg, 3, device=CPU)
+    assert (st.kmat is not None) == cfg.use_kernel_cache
+    if st.kmat is not None:
+        assert st.kmat.shape == (cfg.slots, cfg.slots) and st.kmat.dtype == torch.float32
 
 
 @pytest.mark.parametrize("knob", [

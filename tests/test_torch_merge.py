@@ -114,19 +114,38 @@ def test_candidate_scores_match(method):
 
 def test_run_maintenance_masks_events_below_budget():
     sv_x, alpha, count = _state(2)
-    args = (torch.tensor(sv_x), torch.tensor(alpha), torch.tensor(count, dtype=torch.int32),
+    args = (torch.tensor(sv_x), torch.tensor(alpha), None, torch.tensor(count, dtype=torch.int32),
             torch.tensor(4, dtype=torch.int32), GAMMA, torch_default_table())
-    sv, al, c, n = tbudget.run_maintenance(*args, budget=count)        # not over budget
-    assert torch.equal(sv, args[0]) and torch.equal(al, args[1])
+    sv, al, km, c, n = tbudget.run_maintenance(*args, budget=count)    # not over budget
+    assert torch.equal(sv, args[0]) and torch.equal(al, args[1]) and km is None
     assert int(c) == count and int(n) == 4
-    sv, al, c, n = tbudget.run_maintenance(*args, budget=count - 2, unroll=3)
+    sv, al, km, c, n = tbudget.run_maintenance(*args, budget=count - 2, unroll=3)
     assert int(c) == count - 2 and int(n) == 6         # third event masked out
     assert (al[count - 2:] == 0).all()
 
 
-def test_run_maintenance_unported_strategy_raises():
-    sv_x, alpha, count = _state(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbudget.run_maintenance(torch.tensor(sv_x), torch.tensor(alpha),
-                                torch.tensor(count), torch.tensor(0), GAMMA, None,
-                                budget=count - 1, strategy="multi-merge")
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("same_sign", [False, True], ids=["merge", "removal"])
+def test_binary_event_equals_class_axis_event(method, same_sign):
+    """The binary step's event (no class axis) and the class-axis event at
+    C = 1 are one event: equal state and info, bit for bit, executed or
+    masked.  ``same_sign`` with one SV of the other sign forces the removal
+    fallback."""
+    sv_x, alpha, slots = _state(7, same_sign=same_sign)
+    if same_sign:
+        alpha[int(np.argmin(np.abs(alpha)))] *= -1.0
+    table = torch_default_table() if method.startswith("lookup") else None
+    sv, al = torch.tensor(sv_x), torch.tensor(alpha)
+    for execute in (True, False):
+        ex = torch.tensor([execute])
+        count = torch.tensor(slots - 2, dtype=torch.int32)
+        b_sv, b_al, b_count, b_info = tbudget._merge_once_binary(
+            sv, al, count, GAMMA, method, table, execute=ex[0], impl="ref")
+        c_sv, c_al, _, c_count, c_info = tbudget._merge_once(
+            sv[None], al[None], None, count.reshape(1), GAMMA, method, table, execute=ex,
+            impl="ref")
+        assert torch.equal(b_sv, c_sv[0]) and torch.equal(b_al, c_al[0])
+        assert int(b_count) == int(c_count[0]) == slots - 2 - int(execute)
+        for b, c in zip(b_info, c_info):
+            assert torch.equal(b, c[0])
+        assert bool(b_info.merged) is not same_sign
