@@ -39,7 +39,20 @@ non-zero exit code:
      integer state compared step by step (where it first differs, the cause
      must be a near-tie: a margin on either side of 1, or tied event
      scores), then the cache invariants I1-I3 of both;
- 10. a short profiled window of each class-axis run.
+ 10. a short profiled window of each class-axis run;
+ 11. the fused ``train_step`` kernel against its plain version on the card,
+     from the same state: the class axis (C = 10, S = 508, D = 780, batch 8)
+     under ``merge`` and ``multi-merge``, a bf16 bank, a state below the
+     budget, a ragged shape and the binary shape (C = 1, S = 501, D = 123,
+     batch 1); then, with ``step_engine="pallas"`` (one ``train_step``
+     launch a step), run (c) (``merge``) and run (d) (``multi-merge``,
+     merge_batch 4), one whole class-axis epoch each, and the binary fused
+     run, one epoch of the ADULT stand-in with the cache at batch 1;
+ 12. the first 1,000 steps of run (c) on the card twice in lockstep, through
+     the fused kernel and through run (a)'s composed engine, integer state
+     compared step by step (where they first differ, the cause must be a
+     near-tie), then the cache invariants of both;
+ 13. a profiled window of runs (c) and (d) and of the binary fused run.
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 It imports nothing from the JAX package.  Without a CUDA device, or without
@@ -70,12 +83,16 @@ MC_GAMMA, MC_LAMBDA, MC_BUDGET, MC_BATCH = 2.0 ** -11, 1e-5, 500, 8
 MC_REPLAY_STEPS = 1_000
 # profiled steps per class-axis run: run (b) launches ~2,500 kernels a step,
 # which the profiler's bookkeeping makes slow to read back
-MC_PROFILE_STEPS = {"a": 40, "b": 8}
+MC_PROFILE_STEPS = {"a": 40, "b": 8, "c": 200, "d": 200}
 # steps of each class-axis run; None is one whole epoch (MC_TRAIN // MC_BATCH).
 # Run (b) is cut to stay inside the time limit: a whole epoch took 475 s of
 # the script's ~890 s on one H100 (its masked multi-merge rounds launch
 # ~2,700 small kernels a step; see PERF.md)
-MC_STEPS = {"a": None, "b": 3_000}
+MC_STEPS = {"a": None, "b": 3_000, "c": None, "d": None}
+MC_RUNS = {"a": "merge_event engine", "b": "multi-merge", "c": "fused step, merge",
+           "d": "fused step, multi-merge"}
+LOCKSTEP_STEPS = 1_000
+FUSED_PROFILE_STEPS = 1_000
 
 
 def check(cond: bool, what: str) -> None:
@@ -608,8 +625,10 @@ def mnist_standin(make_blobs_multiclass):
 
 
 def _mc_config(mc, run: str):
-    knobs = (dict(maintenance_engine="pallas") if run == "a"
-             else dict(maintenance="multi-merge", merge_batch=4))
+    knobs = {"a": dict(maintenance_engine="pallas"),
+             "b": dict(maintenance="multi-merge", merge_batch=4),
+             "c": dict(step_engine="pallas"),
+             "d": dict(step_engine="pallas", maintenance="multi-merge", merge_batch=4)}[run]
     return mc.MulticlassSVMConfig.create(MC_CLASSES, budget=MC_BUDGET, lambda_=MC_LAMBDA,
                                          gamma=MC_GAMMA, batch_size=MC_BATCH, method="lookup-wd",
                                          use_kernel_cache=True, **knobs)
@@ -645,18 +664,20 @@ def phase_class_run(mc, ops, kernel_cache, data, run: str):
     res = dict(steps=steps, seconds=secs, us_per_step=secs / steps * 1e6, accuracy=acc,
                count=st.count.tolist(), n_merges=st.n_merges.tolist(),
                n_inserts=st.n_inserts.tolist(), launches=launches)
-    print(f"class-axis run ({run}) {'merge_event engine' if run == 'a' else 'multi-merge'}: "
-          f"{json.dumps(res)}")
-    kernel = "merge_event" if run == "a" else "multi_merge_scores"
+    print(f"class-axis run ({run}) {MC_RUNS[run]}: {json.dumps(res)}")
+    kernel = {"a": "merge_event", "b": "multi_merge_scores"}.get(run, "train_step")
     check(st.sv_x.is_cuda and st.kmat.is_cuda, "the class-axis state lives on the card")
     check(max(res["count"]) <= MC_BUDGET, f"run ({run}): a count above the budget")
     check(min(res["n_merges"]) > 0, f"run ({run}): a class with no merge event")
     check(launches[kernel] > 0, f"run ({run}): {kernel} never launched")
+    if kernel == "train_step":
+        check(launches[kernel] == steps, f"run ({run}): train_step launched "
+              f"{launches[kernel]} times in {steps} steps")
     check(launches["rbf_matrix"] > 0, f"run ({run}): rbf_matrix never launched")
     check(acc >= 0.80, f"run ({run}): accuracy {acc} below the 0.80 sanity floor")
-    if run == "a":
+    if run != "b":
         worst = kernel_cache.invariant_errors(st.kmat, st.sv_x, st.count, MC_GAMMA)
-        print(f"run (a) end of epoch: worst I1 error per class "
+        print(f"run ({run}) end of epoch: worst I1 error per class "
               f"{[float(f'{e:.3e}') for e in worst]}")
     return res, st, cfg
 
@@ -752,8 +773,9 @@ def phase_class_replay(mc, kernel_cache, data):
               f"I2, I3 hold")
 
 
-def _profile(step, steps: int, label: str):
-    """Device busy time per step over ``steps`` calls of ``step(i)``."""
+def _profile(step, steps: int, label: str, steps_per_call: int = 1):
+    """Device busy time per step over ``steps`` calls of ``step(i)``, each
+    call ``steps_per_call`` training steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -773,6 +795,7 @@ def _profile(step, steps: int, label: str):
         if launches:
             break
     check(launches > 0, "the profiler saw no kernel on the card in three windows")
+    steps *= steps_per_call
     print(f"profile {label}: {steps} steps, wall {wall / steps * 1e6:.1f} us/step "
           f"(profiler on), device busy {busy_us / steps:.2f} us/step, "
           f"idle share {1 - busy_us / (wall * 1e6):.4f}, "
@@ -795,6 +818,294 @@ def phase_class_profile(mc, runs, data):
             box[0] = mc.train_step_multiclass(cfg, table, box[0], xs[sl], ys[sl])
 
         _profile(step, MC_PROFILE_STEPS[run], f"class-axis run ({run})")
+
+
+def _step_state(gen, c, s, d, b, budget, count, gamma, sv_dtype, dev):
+    """A class-axis state with an exact cache and one minibatch for one fused
+    step: ``count`` active slots a class, alphas of both signs scaled so that
+    most batch rows (not all) violate the margin, and ``k_bb`` from the plain
+    RBF."""
+    from repro_torch.core import kernel_cache
+    from repro_torch.kernels import ref
+    sv = torch.randn(c, s, d, generator=gen).to(dev, sv_dtype).contiguous()
+    kmat = kernel_cache.exact_cache(sv, gamma).contiguous()
+    alpha = (torch.randn(c, s, generator=gen) * (2.0 / count ** 0.5)).to(dev)
+    alpha = torch.where(torch.arange(s, device=dev) < count, alpha, 0.0).contiguous()
+    xb = torch.randn(b, d, generator=gen).to(dev)
+    yb = torch.where(torch.rand(c, b, generator=gen) < 0.5, -1.0, 1.0).to(dev)
+    ints = lambda v: torch.full((c,), v, dtype=torch.int32, device=dev)
+    return [sv, alpha, kmat, ints(count), ints(5_000), ints(0), ints(0), xb, yb,
+            ref.rbf_matrix(xb, xb, gamma)]
+
+
+def _step_ties(ref, tab, args, kw):
+    """How near the plain step on ``args`` comes to a tie that two correct
+    implementations may break differently: the least |margin - 1| over every
+    class and batch row, and the least nonzero relative gap between
+    neighbours among the P + 1 smallest |alpha| (the fixed partners) or
+    between the two best WD scores of a fixed partner, over every round that
+    runs.  Exact ties do not count: both sides break them by slot (the SVs
+    of one insert share one |alpha|).  Returns ``(margin_gap, tie_gap)``."""
+    sv, alpha, kmat, count, step, nin, nmg, xb, yb, k_bb = args
+    c, s, d = sv.shape
+    idx = torch.arange(s, device=sv.device)
+    k_b = ref.rbf_matrix(xb, sv.reshape(c * s, d), kw["gamma"]).view(-1, c, s).transpose(0, 1)
+    f = (k_b @ torch.where(idx < count[:, None], alpha, 0.0)[..., None])[..., 0]
+    margin_gap = float((yb * f - 1.0).abs().min())
+    # the insert alone (no class is over a budget of 2^30), then the rounds
+    st = [t.clone() for t in args[:7]]
+    ref.train_step_fused(*st, xb, yb, k_bb, tab.h_table, tab.wd_table,
+                         **{**kw, "budget": 2 ** 30})
+    sv, alpha, kmat, count = st[:4]
+    p = kw["merge_batch"] if kw["maintenance"] == "multi-merge" else 1
+    tie_gap = float("inf")
+    for _ in range(kw["batch_size"]):
+        over = count > kw["budget"]
+        for q in torch.nonzero(over).flatten().tolist():
+            act = idx < count[q]
+            a_abs, order = torch.sort(torch.where(act, alpha[q].abs(), torch.inf), stable=True)
+            rel = (a_abs[1:p + 1] - a_abs[:p]) / a_abs[:p].clamp(min=1e-30)
+            tie_gap = min([tie_gap] + rel[rel > 0].tolist())
+            for i in order[:p].tolist():
+                a_i = alpha[q, i]
+                valid = act & (alpha[q] * a_i > 0) & (idx != i)
+                m, kap = ref.merge_coords(a_i, alpha[q], kmat[q, i])
+                wd = torch.where(valid, (a_i + alpha[q]) ** 2
+                                 * ref.bilinear_lookup(tab.wd_table, m, kap), torch.inf)
+                w2 = torch.sort(wd).values[:2]
+                rel = float((w2[1] - w2[0]) / w2[0].abs().clamp(min=1e-30))
+                if bool(torch.isfinite(w2).all()) and rel > 0:
+                    tie_gap = min(tie_gap, rel)
+        if kw["maintenance"] == "merge":
+            ref.merge_event(sv, alpha, kmat, count, over, tab.h_table, tab.wd_table)
+            count = count - over.to(count.dtype)
+        else:
+            sv, alpha, kmat, count = ref.multi_merge_event(
+                sv, alpha, kmat, count, over, tab.h_table, tab.wd_table, budget=kw["budget"],
+                merge_batch=kw["merge_batch"])
+    return margin_gap, tie_gap
+
+
+def _explained(gaps) -> bool:
+    """A near-tie: a margin within 1e-3 of 1, or a tie within 1e-5 relative."""
+    return any(mg < 1e-3 or tg <= 1e-5 for mg, tg in gaps)
+
+
+def _step_bound(args, out, kw):
+    """Least time of one fused step on these inputs.  Bytes: the bank, alpha
+    (read and written), the minibatch, targets, k_bb and the counters once;
+    per class the cache rows and columns its inserts write (two of count
+    entries each) and, per SV an event retires, the seven cache rows and
+    five SV rows the event reads or writes (merge: rows i_min, j, last read,
+    two rows and two columns written; multi-merge: the pair's two rows read,
+    z's row and column written, one moved row read and written with its
+    column).  Operations: two a multiply-add of the margin (B x S x D a
+    class, and the norms), ~25 a scored candidate and ~10 an active slot of
+    every event."""
+    sv, alpha, kmat, count, step, nin, nmg, xb, yb, k_bb = args
+    c, s, d = sv.shape
+    b = xb.shape[0]
+    es = sv.element_size()
+    n_new = (out[5] - nin).double()
+    retired = (count + out[5] - nin - out[3]).double()
+    rounds = (out[6] - nmg).double()
+    mid = (count + out[5] - nin).double()
+    p = kw["merge_batch"] if kw["maintenance"] == "multi-merge" else 1
+    n_bytes = (c * s * d * es + 2 * c * s * 4 + b * d * 4 + c * b * 4 + b * b * 4 + 7 * c * 4
+               + float((n_new * 2 * mid * 4 + retired * (7 * mid * 4 + 5 * d * es)).sum()))
+    n_ops = (2.0 * c * s * d * (b + 1) + 10.0 * c * b * s
+             + float((rounds * mid * (25.0 * p + 10.0)).sum()))
+    return bound_ms(n_bytes, n_ops)
+
+
+def phase_step_kernel(ops, ref, table):
+    """train_step against its plain version on the card, from the same state."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 11)
+    tab = table.to(dev)
+    s_mc = MC_BUDGET + MC_BATCH
+    cases = [  # (label, C, budget, D, B, count, gamma, lambda, sv dtype, maintenance)
+        ("class axis", MC_CLASSES, MC_BUDGET, MC_DIM, MC_BATCH, MC_BUDGET - 2, MC_GAMMA,
+         MC_LAMBDA, torch.float32, "merge"),
+        ("class axis", MC_CLASSES, MC_BUDGET, MC_DIM, MC_BATCH, MC_BUDGET - 2, MC_GAMMA,
+         MC_LAMBDA, torch.float32, "multi-merge"),
+        ("bf16 bank", MC_CLASSES, MC_BUDGET, MC_DIM, MC_BATCH, MC_BUDGET - 2, MC_GAMMA,
+         MC_LAMBDA, torch.bfloat16, "multi-merge"),
+        ("below budget", MC_CLASSES, MC_BUDGET, MC_DIM, MC_BATCH, MC_BUDGET // 2, MC_GAMMA, MC_LAMBDA,
+         torch.float32, "merge"),
+        ("ragged", 3, 33, 5, 4, 31, 0.5, 1e-3, torch.float32, "multi-merge"),
+        ("ragged", 3, 33, 5, 4, 31, 0.5, 1e-3, torch.float32, "merge"),
+        ("binary", 1, BUDGET, DIM, 1, BUDGET, 2.0 ** -7, 1e-5, torch.float32, "merge"),
+    ]
+    records = {}
+    for label, c, budget, d, b, count, gamma, lam, sv_dtype, maint in cases:
+        s = budget + b
+        kw = dict(budget=budget, lambda_=lam, gamma=gamma, batch_size=b, maintenance=maint,
+                  merge_batch=4)
+        args = _step_state(gen, c, s, d, b, budget, count, gamma, sv_dtype, dev)
+        got = [t.clone() for t in args[:7]]
+        want = [t.clone() for t in args[:7]]
+        g_out = ops.train_step(*got, *args[7:], tab, impl="cuda", **kw)
+        w_out = ops.train_step(*want, *args[7:], tab, impl="ref", **kw)
+        torch.cuda.synchronize()
+        ints_equal = all(bool(torch.equal(g_out[k], w_out[k])) for k in (3, 4, 5, 6))
+        e_sv = (g_out[0].float() - w_out[0].float()).abs().max().item()
+        e_al = (g_out[1] - w_out[1]).abs().max().item()
+        e_km = (g_out[2] - w_out[2]).abs().max().item()
+        # floats: the reference's kernel-vs-oracle tolerance (rtol 1e-5, atol
+        # 5e-5); a bf16 bank within one bf16 rounding of the plain version
+        sv_tol = 5e-5 if sv_dtype == torch.float32 else 2.0 ** -7 * w_out[0].float().abs().max().item()
+        floats_ok = (e_sv <= sv_tol and e_km <= 5e-5
+                     and bool(torch.allclose(g_out[1], w_out[1], rtol=1e-5, atol=5e-5)))
+        events = int((w_out[6] - args[6]).sum())
+        line = (f"train_step {label} {maint} C={c} S={s} D={d} B={b} {str(sv_dtype)[6:]}: "
+                f"integer state equal {ints_equal} (events {events}, inserts "
+                f"{int(w_out[5].sum())}) max err sv_x {e_sv:.3e} (tol {sv_tol:.3e}) alpha "
+                f"{e_al:.3e} kmat {e_km:.3e} (rtol 1e-5, atol 5e-5)")
+        if label == "below budget":
+            # the rounds are bitwise no-ops: merge and multi-merge rounds give one state
+            other = [t.clone() for t in args[:7]]
+            o_out = ops.train_step(*other, *args[7:], tab, impl="cuda",
+                                   **{**kw, "maintenance": "multi-merge"})
+            noop = events == 0 and all(bool(torch.equal(x, y)) for x, y in zip(g_out, o_out))
+            line += f"; no events, merge and multi-merge rounds bitwise equal {noop}"
+            check(noop, "train_step below the budget: the rounds are not bitwise no-ops")
+        else:
+            check(events > 0, f"train_step {label} {maint}: no event ran")
+        if not ints_equal:
+            gaps = _step_ties(ref, tab, args, kw)
+            line += f"; parts: least |margin - 1| {gaps[0]:.3e}, least tie gap {gaps[1]:.3e}"
+            check(_explained([gaps]), f"train_step {label} {maint}: integer state differs "
+                  "without a near-tie")
+        print(line)
+        check(floats_ok or not ints_equal, f"train_step {label} {maint} against its plain version")
+        if label == "class axis" or label == "binary":
+            work = [t.clone() for t in args[:7]]
+            plain = [t.clone() for t in args[:7]]
+            k_ms = time_call(lambda: ops.train_step(*work, *args[7:], tab, impl="cuda", **kw))
+            p_ms = time_call(lambda: ops.train_step(*plain, *args[7:], tab, impl="ref", **kw),
+                             calls=10, repeats=3)
+            dm = device_ms(lambda: ops.train_step(*work, *args[7:], tab, impl="cuda", **kw),
+                           "train_step_kernel")
+            b_ms, b_by = _step_bound(args, w_out, kw)
+            print(f"  train_step timing ({label} {maint}): kernel {k_ms * 1e3:.2f} us per call "
+                  f"(device {us(dm)}) plain {p_ms * 1e3:.2f} us bound {b_ms * 1e3:.4f} us "
+                  f"({b_by}); library call: none")
+            if label == "class axis" and maint == "merge":
+                records["train_step"] = dict(max_abs_err=max(e_sv, e_al, e_km), ms=k_ms,
+                                             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                             library_ms=None, device_ms=dm)
+    return records
+
+
+def phase_binary_fused(core, ops, data, composed_acc: float):
+    """The binary main path with the fused step (cache, batch 1), one epoch, the
+    launch counters set to 0 just before it and read just after."""
+    (xtr, ytr), (xte, yte) = data
+    cfg = core.BSGDConfig(budget=BUDGET, lambda_=1e-5, gamma=2.0 ** -7, batch_size=1,
+                          use_kernel_cache=True, step_engine="pallas")
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = core.fit(cfg, xtr, ytr, epochs=1, seed=SEED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    acc = float(core.accuracy(st, xte, yte, cfg.gamma))
+    steps = int(st.step) - 1
+    run = dict(count=int(st.count), n_inserts=int(st.n_inserts), n_merges=int(st.n_merges),
+               accuracy=acc, seconds=secs, us_per_step=secs / steps * 1e6, steps=steps,
+               launches=launches)
+    print(f"fit lookup-wd fused step (cache): {json.dumps(run)}")
+    gap = abs(acc - composed_acc)
+    print(f"accuracy fused vs composed lookup-wd: gap {gap:.4f} (limit 0.01)")
+    check(st.sv_x.is_cuda and st.kmat.is_cuda, "the fused binary state lives on the card")
+    check(run["count"] <= BUDGET, f"fused binary: count {run['count']} > budget")
+    check(run["n_merges"] > 0, "fused binary: no merge events")
+    check(launches["train_step"] == steps, f"fused binary: train_step launched "
+          f"{launches['train_step']} times in {steps} steps")
+    check(gap <= 0.01, f"fused and composed binary accuracies differ by {gap}")
+    return run, st, cfg
+
+
+def phase_lockstep(mc, kernel_cache, ref, data):
+    """The first LOCKSTEP_STEPS steps of run (c) on the card through the fused
+    kernel and through run (a)'s composed engine, integer state compared step
+    by step; where they first part, the step must be a near-tie."""
+    (xtr, ytr), _ = data
+    dev = torch.device("cuda")
+    cfgs = {"fused": _mc_config(mc, "c"), "composed": _mc_config(mc, "a")}
+    tab = cfgs["fused"].table().to(dev)
+    order = _mc_order(LOCKSTEP_STEPS)
+    xs = torch.as_tensor(xtr).index_select(0, order).to(dev)
+    ys = torch.as_tensor(ytr).long().index_select(0, order).to(dev)
+    st = {k: mc.init_multiclass_state(cfgs["fused"], MC_DIM, device=dev) for k in cfgs}
+    ints = lambda s: torch.stack([s.count, s.n_inserts, s.n_merges]).cpu()
+    b = cfgs["fused"].binary
+    kw = dict(budget=b.budget, lambda_=b.lambda_, gamma=b.gamma, batch_size=b.batch_size,
+              maintenance="merge", merge_batch=b.merge_batch)
+    first = None
+    t0 = time.perf_counter()
+    for i in range(LOCKSTEP_STEPS):
+        sl = slice(i * MC_BATCH, (i + 1) * MC_BATCH)
+        prev = dict(st)
+        for k, cfg in cfgs.items():
+            st[k] = mc.train_step_multiclass(cfg, tab, st[k], xs[sl], ys[sl])
+        if first is None and not torch.equal(ints(st["fused"]), ints(st["composed"])):
+            first = i
+            y_ovr = mc.ovr_targets(ys[sl], MC_CLASSES)
+            k_bb = ref.rbf_matrix(xs[sl], xs[sl], b.gamma)
+            gaps = [_step_ties(ref, tab, [p.sv_x, p.alpha, p.kmat, p.count, p.step, p.n_inserts,
+                                          p.n_merges, xs[sl], y_ovr, k_bb], kw)
+                    for p in prev.values()]
+            print(f"lockstep: first step whose integer state differs: {i}; least |margin - 1| "
+                  f"{min(g[0] for g in gaps):.3e}, least tie gap {min(g[1] for g in gaps):.3e}")
+            check(_explained(gaps), f"fused and composed part at step {i} without a near-tie")
+    if first is None:
+        print("lockstep: first step whose integer state differs: None")
+    print(f"lockstep: {LOCKSTEP_STEPS} steps on both in {time.perf_counter() - t0:.3f} s; "
+          f"n_merges fused {st['fused'].n_merges.tolist()} composed "
+          f"{st['composed'].n_merges.tolist()}")
+    for k, s in st.items():
+        kernel_cache.check_invariants(s.kmat, s.sv_x, s.count, MC_GAMMA, tol=5e-5,
+                                      context=f"lockstep {k}")
+        worst = kernel_cache.invariant_errors(s.kmat, s.sv_x, s.count, MC_GAMMA)
+        print(f"lockstep {k}: cache invariants I1 (tol 5e-5, worst {worst.max():.3e}), "
+              "I2, I3 hold")
+
+
+def phase_fused_profile(core, mc, runs, binary, data, mc_data):
+    """Profiled windows of the fused runs: the epoch loops themselves, chunk by
+    chunk (each chunk one ``train_epoch`` call, which updates one copy of the
+    state in place)."""
+    chunk = 50
+    (xtr, ytr), _ = mc_data
+    n = FUSED_PROFILE_STEPS * MC_BATCH
+    xs = torch.as_tensor(xtr[:n]).cuda()
+    ys = torch.as_tensor(ytr[:n]).long().cuda()
+    for run, (_, st, cfg) in runs.items():
+        table = cfg.table().to("cuda")
+        box = [st]
+        steps = MC_PROFILE_STEPS[run]
+
+        def step(i, cfg=cfg, table=table, box=box):
+            order = torch.arange(i * chunk * MC_BATCH, (i + 1) * chunk * MC_BATCH)
+            box[0] = mc.train_epoch_multiclass(cfg, table, box[0], xs, ys, order)
+
+        _profile(step, steps // chunk, f"class-axis run ({run})", steps_per_call=chunk)
+    (xtr, ytr), _ = data
+    _, st, cfg = binary
+    table = cfg.table().to("cuda")
+    xb = torch.as_tensor(xtr[:FUSED_PROFILE_STEPS]).cuda()
+    yb = torch.as_tensor(ytr[:FUSED_PROFILE_STEPS]).cuda()
+    box = [st]
+
+    def bstep(i):
+        box[0] = core.train_epoch(cfg, table, box[0], xb, yb,
+                                  torch.arange(i * chunk, (i + 1) * chunk))
+
+    _profile(bstep, FUSED_PROFILE_STEPS // chunk, "binary lookup-wd fused step",
+             steps_per_call=chunk)
 
 
 def main() -> int:
@@ -824,6 +1135,8 @@ def main() -> int:
         records = phase_kernels(ops, ref, default_table())
     with Phase("7 class-axis kernels vs plain"):
         records.update(phase_class_kernels(ops, ref, default_table()))
+    with Phase("11 train_step kernel vs plain"):
+        records.update(phase_step_kernel(ops, ref, default_table()))
     with Phase("data"):
         data = adult_standin(make_blobs, train_test_split)
         print(f"ADULT stand-in: train {data[0][0].shape} test {data[1][0].shape}")
@@ -833,6 +1146,8 @@ def main() -> int:
         phase_replay(core, data)
     with Phase("6 profile"):
         phase_profile(core, runs["lookup-wd"])
+    with Phase("11 binary fused run"):
+        binary_fused = phase_binary_fused(core, ops, data, runs["lookup-wd"][0]["accuracy"])
     with Phase("class-axis data"):
         mc_data = mnist_standin(make_blobs_multiclass)
     mc_runs = {}
@@ -843,9 +1158,19 @@ def main() -> int:
         phase_class_replay(mc, kernel_cache, mc_data)
     with Phase("10 class-axis profile"):
         phase_class_profile(mc, mc_runs, mc_data)
+    fused_runs = {}
+    for run in ("c", "d"):
+        with Phase(f"11 class-axis run ({run})"):
+            fused_runs[run] = phase_class_run(mc, ops, kernel_cache, mc_data, run)
+    with Phase("12 fused vs composed lockstep"):
+        phase_lockstep(mc, kernel_cache, ref, mc_data)
+    with Phase("13 fused step profile"):
+        phase_fused_profile(core, mc, fused_runs, binary_fused, data, mc_data)
 
     counts["merge_event"] = mc_runs["a"][0]["launches"]["merge_event"]
     counts["multi_merge_scores"] = mc_runs["b"][0]["launches"]["multi_merge_scores"]
+    counts["train_step"] = (binary_fused[0]["launches"]["train_step"]
+                            + sum(r[0]["launches"]["train_step"] for r in fused_runs.values()))
     meta = {
         "rbf_matrix": ("src/repro_torch/csrc/rbf_kernel.cu", "src/repro/kernels/rbf_kernel.py:57"),
         "merge_scores": ("src/repro_torch/csrc/merge_lookup.cu",
@@ -855,6 +1180,8 @@ def main() -> int:
                                "src/repro/kernels/merge_multi.py:68"),
         "merge_event": ("src/repro_torch/csrc/merge_event.cu",
                         "src/repro/kernels/merge_event.py:193"),
+        "train_step": ("src/repro_torch/csrc/train_step.cu",
+                       "src/repro/kernels/train_step.py:370"),
     }
     kernels = [dict(name=name, route="cuda", source=src_path, replaces=replaces,
                     launches=counts[name], **records[name])

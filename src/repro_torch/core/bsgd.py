@@ -49,13 +49,14 @@ class BSGDConfig:
     """Budgeted-SGD hyperparameters (one binary problem).
 
     The fields and their validation are ``repro.core.bsgd.BSGDConfig``'s, so
-    one config means the same in both packages.  Valid settings that this
-    port does not carry yet raise ``NotImplementedError`` naming the
-    ROADMAP.md item: ``step_engine="pallas"`` and ``solver="bdca"``.
-    ``maintenance_engine="pallas"`` runs the fused ``merge_event`` kernel.
-    Maintenance always runs ``batch_size`` masked events (or rounds) per
-    step (the reference's ``unroll_maintenance`` form), whichever
-    ``unroll_maintenance`` says.
+    one config means the same in both packages.  A valid setting that this
+    port does not carry yet raises ``NotImplementedError`` naming the
+    ROADMAP.md item: ``solver="bdca"``.  ``maintenance_engine="pallas"``
+    runs the fused ``merge_event`` kernel; ``step_engine="pallas"`` runs the
+    whole step (margin rows, insert, event rounds) as one ``train_step``
+    kernel launch per step.  Maintenance always runs ``batch_size`` masked
+    events (or rounds) per step (the reference's ``unroll_maintenance``
+    form), whichever ``unroll_maintenance`` says.
     """
 
     budget: int = 100
@@ -134,14 +135,9 @@ class BSGDConfig:
         self._check_ported()
 
     def _check_ported(self):
-        unported = [
-            (self.step_engine == "pallas", "step_engine='pallas'", "Queue 2 kernel 6"),
-            (self.solver == "bdca", "solver='bdca'", "Queue 1 item 9"),
-        ]
-        for hit, knob, item in unported:
-            if hit:
-                raise NotImplementedError(
-                    f"{knob} is not ported to repro_torch yet (ROADMAP.md {item})")
+        if self.solver == "bdca":
+            raise NotImplementedError(
+                "solver='bdca' is not ported to repro_torch yet (ROADMAP.md Queue 1 item 9)")
 
     @property
     def slots(self) -> int:
@@ -169,6 +165,12 @@ def resolve_device(device=None) -> torch.device:
 
 def _to(state: SVMState, dev: torch.device) -> SVMState:
     return SVMState(*(None if t is None else t.to(dev) for t in state))
+
+
+def _owned(state: SVMState) -> SVMState:
+    """A contiguous copy of every leaf, for the fused step to update in place."""
+    return SVMState(*(None if t is None else t.clone(memory_format=torch.contiguous_format)
+                      for t in state))
 
 
 def _tensor(a, dev, dtype=torch.float32) -> torch.Tensor:
@@ -278,11 +280,29 @@ def train_step_from_rows(cfg: BSGDConfig, table, state: SVMState, xb, yb, k_b, k
     return drain_budget(cfg, table, state, impl=impl)
 
 
+def _fused_step_(cfg: BSGDConfig, table, state: SVMState, xb, yb, *,
+                 impl: str = "auto") -> SVMState:
+    """``step_engine="pallas"``: the whole step as one ``train_step`` launch,
+    the binary state lifted to C = 1 (views, so the leaves are updated IN
+    PLACE; the state must own contiguous leaves)."""
+    k_bb = kops.rbf_matrix(xb, xb, cfg.gamma, impl=impl)
+    out = kops.train_step(
+        state.sv_x[None], state.alpha[None], state.kmat[None], state.count.view(1),
+        state.step.view(1), state.n_inserts.view(1), state.n_merges.view(1), xb, yb[None],
+        k_bb, table, budget=cfg.budget, lambda_=cfg.lambda_, gamma=cfg.gamma,
+        batch_size=cfg.batch_size, maintenance=cfg.maintenance, merge_batch=cfg.merge_batch,
+        impl=impl)
+    return state._replace(step=out[4].view(()))
+
+
 def train_step(cfg: BSGDConfig, table, state: SVMState, xb, yb, *,
                impl: str = "auto") -> SVMState:
-    """One minibatch step + budget maintenance on the state's device.
+    """One minibatch step + budget maintenance on the state's device; the
+    caller's state is left as it was.
 
     xb: (batch, dim), yb: (batch,) in {-1, +1}, on the state's device."""
+    if cfg.step_engine == "pallas":
+        return _fused_step_(cfg, table, _owned(state), xb, yb, impl=impl)
     k_b = kops.rbf_matrix(xb, state.sv_x, cfg.gamma, impl=impl)   # (batch, slots)
     k_bb = kops.rbf_matrix(xb, xb, cfg.gamma, impl=impl) if cfg.use_kernel_cache else None
     return train_step_from_rows(cfg, table, state, xb, yb, k_b, k_bb, impl=impl)
@@ -308,9 +328,12 @@ def train_epoch(cfg: BSGDConfig, table, state: SVMState, x, y, perm, *,
     order = order[: steps * b]
     xs = _tensor(x, dev).index_select(0, order)
     ys = _tensor(y, dev).index_select(0, order)
+    step_fn = train_step
+    if cfg.step_engine == "pallas":   # one copy of the state, updated in place every step
+        state, step_fn = _owned(state), _fused_step_
     for i in range(steps):
-        state = train_step(cfg, table, state, xs[i * b:(i + 1) * b], ys[i * b:(i + 1) * b],
-                           impl=impl)
+        state = step_fn(cfg, table, state, xs[i * b:(i + 1) * b], ys[i * b:(i + 1) * b],
+                        impl=impl)
     return state
 
 

@@ -235,7 +235,7 @@ def _merge_once(sv_x, alpha, kmat, count, gamma, method, table, *, kappa_row=Non
                              torch.where(col == hi[:, None], 1.0, row_last))
         r_remove = torch.where(col == i_min[:, None], 1.0, row_last)
         rows = torch.stack([torch.where(has_partner[:, None], r_merge, r_remove), r_move], dim=1)
-        kmat = kernel_cache._put_rows_and_columns(kmat, torch.stack([t1, t2], dim=1), rows)
+        kmat = kref.put_rows_and_columns(kmat, torch.stack([t1, t2], dim=1), rows)
     # the two targets' (C, S) masks serve both writes; t1 wins over t2, and
     # alpha[last] = 0 over both (it comes after the two moves)
     m1, m2 = idx == t1[:, None], idx == t2[:, None]
@@ -351,7 +351,7 @@ def _multi_merge_once(sv_x, alpha, kmat, count, gamma, method, table, budget: in
     src_c = src.clamp(max=s - 1)
     if kmat is not None:
         rows = kmat[arc, src_c]                                            # (C, P, S)
-        kmat = kernel_cache._put_rows_and_columns(kmat, dst, rows)
+        kmat = kref.put_rows_and_columns(kmat, dst, rows)
         # the moved rows' intersections: slot dst_l now holds the old src_l
         kmat = kref.put_block(kmat, dst, dst, rows.gather(2, src_c[:, None, :].expand(c, p, p)))
     sv_x = put_rows(sv_x, dst, sv_x[arc, src_c])

@@ -83,12 +83,6 @@ def _ar(kmat):
     return kref.iota(kmat.shape[0], kmat.device)
 
 
-def _put_rows_and_columns(kmat, t, rows):
-    """Rows ``t`` of the cache, then the same columns, set from ``rows``."""
-    kmat = kref.put_rows(kmat, t, rows)
-    return kref.put_rows(kmat.transpose(1, 2), t, rows).transpose(1, 2)
-
-
 @_class_axis
 def merge_z_row(kmat, i, j, h):
     """``k(z, sv[q])`` for every slot q from cached rows only, for
@@ -109,7 +103,7 @@ def insert_rows(kmat, idx, k_new_old, k_new_new):
     # the new rows' columns at the inserted slots hold new-vs-new values
     rows = kref.put_rows(k_new_old.to(kmat.dtype).transpose(1, 2), idx,
                          k_new_new.to(kmat.dtype).transpose(1, 2)).transpose(1, 2)
-    kmat = _put_rows_and_columns(kmat, idx, rows)
+    kmat = kref.put_rows_and_columns(kmat, idx, rows)
     return kref.put_diag(kmat, idx, 1.0)
 
 
@@ -120,20 +114,20 @@ def apply_merge(kmat, i_min, j_star, last, h):
     ar = _ar(kmat)
     z_row = merge_z_row(kmat, i_min, j_star, h)
     lo, hi = torch.minimum(i_min, j_star)[:, None], torch.maximum(i_min, j_star)[:, None]
-    kmat = _put_rows_and_columns(kmat, hi, kmat[ar, last][:, None])
+    kmat = kref.put_rows_and_columns(kmat, hi, kmat[ar, last][:, None])
     kmat = kref.put_diag(kmat, hi, 1.0)
     # z_row was computed against the pre-move layout: slot hi now holds the
     # old ``last``, and k(z, z) = 1
     z_row = kref.put_rows(z_row, torch.cat([lo, hi], dim=1),
                           torch.stack([torch.ones_like(z_row[:, 0]), z_row[ar, last]], dim=1))
-    return _put_rows_and_columns(kmat, lo, z_row[:, None])
+    return kref.put_rows_and_columns(kmat, lo, z_row[:, None])
 
 
 @_class_axis
 def apply_removal(kmat, i_min, last):
     """Cache update for the removal fallback: slot ``i_min`` <- the old ``last``."""
     i = i_min[:, None]
-    kmat = _put_rows_and_columns(kmat, i, kmat[_ar(kmat), last][:, None])
+    kmat = kref.put_rows_and_columns(kmat, i, kmat[_ar(kmat), last][:, None])
     return kref.put_diag(kmat, i, 1.0)
 
 
@@ -162,7 +156,7 @@ def apply_multi_merge(kmat, a_idx, b_idx, h, write_idx):
     cross = 0.5 * (cross + cross.transpose(1, 2))
     eye = torch.eye(p, dtype=torch.bool, device=kmat.device)
     cross = torch.where(eye, 1.0, cross).to(kmat.dtype)
-    kmat = _put_rows_and_columns(kmat, write_idx, z_rows)
+    kmat = kref.put_rows_and_columns(kmat, write_idx, z_rows)
     return kref.put_block(kmat, write_idx, write_idx, cross)
 
 

@@ -11,7 +11,9 @@ a leading ``(C,)`` axis, and train in lockstep:
     shared by every class;
   * with ``maintenance_engine="pallas"`` maintenance is the fused event
     engine, one ``merge_event`` launch per round for all classes
-    (``budget.run_maintenance_classes``).
+    (``budget.run_maintenance_classes``);
+  * with ``step_engine="pallas"`` the whole step (margin rows, insert, event
+    rounds) is one ``train_step`` launch for all classes.
 
 Prediction is the argmax over the C decision functions, again from one
 kernel call (``kernels.ops.class_scores``).  ``fit_multiclass_loop`` trains
@@ -26,8 +28,8 @@ import dataclasses
 import torch
 
 from . import budget as budget_mod
-from .bsgd import (BSGDConfig, SVMState, _tensor, _to, fit, init_state, insert_from_rows,
-                   resolve_device)
+from .bsgd import (BSGDConfig, SVMState, _owned, _tensor, _to, fit, init_state,
+                   insert_from_rows, resolve_device)
 from ..kernels import ops as kops
 
 
@@ -110,17 +112,37 @@ def accuracy_multiclass(state: SVMState, x, y, gamma, *, impl: str = "auto", dev
     return (pred == _tensor(y, dev, torch.int32)).to(torch.float32).mean()
 
 
+def _fused_step_multiclass_(cfg: MulticlassSVMConfig, table, state: SVMState, xb, yb, *,
+                            impl: str = "auto") -> SVMState:
+    """``step_engine="pallas"``: every class's whole step as one
+    ``train_step`` launch, updating the state's leaves IN PLACE (the state
+    must own contiguous leaves)."""
+    b = cfg.binary
+    k_bb = kops.rbf_matrix(xb, xb, b.gamma, impl=impl)
+    y_ovr = ovr_targets(yb, cfg.n_classes, dtype=getattr(torch, b.dtype))
+    out = kops.train_step(
+        state.sv_x, state.alpha, state.kmat, state.count, state.step, state.n_inserts,
+        state.n_merges, xb, y_ovr, k_bb, table, budget=b.budget, lambda_=b.lambda_,
+        gamma=b.gamma, batch_size=b.batch_size, maintenance=b.maintenance,
+        merge_batch=b.merge_batch, impl=impl)
+    return state._replace(step=out[4])
+
+
 def train_step_multiclass(cfg: MulticlassSVMConfig, table, state: SVMState, xb, yb, *,
                           impl: str = "auto") -> SVMState:
-    """One lockstep step for all C one-vs-rest problems.
+    """One lockstep step for all C one-vs-rest problems; the caller's state is
+    left as it was.
 
     xb: (batch, dim); yb: (batch,) integer class ids in [0, C), on the
-    state's device.  One kernel call gives every class's margin rows; the
-    shrink and insert run batched over the class axis, then maintenance
-    drains every class: the fused event engine with
+    state's device.  With ``step_engine="pallas"`` the whole step is one
+    ``train_step`` launch.  Otherwise one kernel call gives every class's
+    margin rows; the shrink and insert run batched over the class axis, then
+    maintenance drains every class: the fused event engine with
     ``maintenance_engine="pallas"``, else the configured strategy batched
     over the classes."""
     b = cfg.binary
+    if b.step_engine == "pallas":
+        return _fused_step_multiclass_(cfg, table, _owned(state), xb, yb, impl=impl)
     k_b = class_kernel_rows(state.sv_x, xb, b.gamma, impl=impl)       # (C, batch, slots)
     k_bb = kops.rbf_matrix(xb, xb, b.gamma, impl=impl) if b.use_kernel_cache else None
     y_ovr = ovr_targets(yb, cfg.n_classes, dtype=getattr(torch, b.dtype))
@@ -153,9 +175,12 @@ def train_epoch_multiclass(cfg: MulticlassSVMConfig, table, state: SVMState, x, 
     order = order[: steps * bs]
     xs = _tensor(x, dev).index_select(0, order)
     ys = _tensor(y, dev, torch.int64).index_select(0, order)
+    step_fn = train_step_multiclass
+    if cfg.binary.step_engine == "pallas":   # one copy of the state, updated in place
+        state, step_fn = _owned(state), _fused_step_multiclass_
     for i in range(steps):
-        state = train_step_multiclass(cfg, table, state, xs[i * bs:(i + 1) * bs],
-                                      ys[i * bs:(i + 1) * bs], impl=impl)
+        state = step_fn(cfg, table, state, xs[i * bs:(i + 1) * bs], ys[i * bs:(i + 1) * bs],
+                        impl=impl)
     return state
 
 

@@ -21,24 +21,17 @@
 // serve both tables.  The TPU kernel's hat-basis matmul and its padding of
 // the row axis to 8 are TPU idioms and are not carried over.
 //
-// The arithmetic follows repro.core.lookup.bilinear_lookup term by term, and
-// the file is compiled with -fmad=false, so wd and h equal the plain PyTorch
-// version's bit for bit.
+// The arithmetic follows repro.core.lookup.bilinear_lookup term by term
+// (lookup.cuh, shared with the fused train step), and the file is compiled
+// with -fmad=false, so wd and h equal the plain PyTorch version's bit for bit.
 #include <cuda_runtime.h>
+
+#include "lookup.cuh"
 
 namespace {
 
 constexpr float WD_INVALID = 3.4e38f;
 constexpr int THREADS = 256;
-
-__device__ __forceinline__ float corner_mix(const float* __restrict__ table, int off, int g1,
-                                            float du, float dv) {
-  const float t00 = __ldg(table + off), t01 = __ldg(table + off + 1);
-  const float t10 = __ldg(table + off + g1), t11 = __ldg(table + off + g1 + 1);
-  const float top = t00 * (1.0f - dv) + t01 * dv;
-  const float bot = t10 * (1.0f - dv) + t11 * dv;
-  return top * (1.0f - du) + bot * du;
-}
 
 __global__ void multi_merge_scores_kernel(const float* __restrict__ alpha, int rows_per_alpha,
                                           const float* __restrict__ kappa,
@@ -58,13 +51,9 @@ __global__ void multi_merge_scores_kernel(const float* __restrict__ alpha, int r
   const float m = fminf(fmaxf(a / (denom == 0.0f ? 1.0f : denom), 0.0f), 1.0f);
   const float kap = fminf(fmaxf(__ldg(kappa + i), 0.0f), 1.0f);
 
-  const float u = m * (float)(g0 - 1);
-  const float v = kap * (float)(g1 - 1);
-  const int i0 = min(max((int)floorf(u), 0), g0 - 2);
-  const int j0 = min(max((int)floorf(v), 0), g1 - 2);
-  const float du = u - (float)i0;
-  const float dv = v - (float)j0;
-  const int off = i0 * g1 + j0;
+  int off;
+  float du, dv;
+  lookup_coords(m, kap, g0, g1, &off, &du, &dv);
   const float interp_wd = corner_mix(wd_table, off, g1, du, dv);
   const float interp_h = corner_mix(h_table, off, g1, du, dv);
 

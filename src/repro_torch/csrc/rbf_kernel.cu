@@ -18,9 +18,13 @@
 // output.  No tensor cores: fp32 accumulation of three sums (|x|^2, |y|^2,
 // x.y) per output, exactly the quantities the reference forms.
 //
-// Ragged n, m and d are masked here; nothing is padded by the caller.
+// Ragged n, m and d are masked here; nothing is padded by the caller.  The
+// sums are accumulated with explicit fmaf and finished by rbf_from_sums
+// (rbf_epilogue.cuh), the expression train_step.cu's margin rows share.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "rbf_epilogue.cuh"
 
 namespace {
 
@@ -31,11 +35,6 @@ constexpr int TILE = 16;       // output tile is TILE x TILE, one output per thr
 constexpr int TK = 32;         // features staged in shared memory per pass
 constexpr int THIN_ROWS = 8;   // n <= THIN_ROWS takes the warp-per-output kernel
 constexpr int WARPS_PER_BLOCK = 8;
-
-__device__ __forceinline__ float rbf_from_sums(float xn, float yn, float xy, float gamma) {
-  float d2 = fmaxf(xn + yn - 2.0f * xy, 0.0f);
-  return expf(-gamma * d2);
-}
 
 template <typename TX, typename TY>
 __global__ void rbf_tiled(const TX* __restrict__ x, const TY* __restrict__ y,
@@ -58,9 +57,9 @@ __global__ void rbf_tiled(const TX* __restrict__ x, const TY* __restrict__ y,
 #pragma unroll
     for (int c = 0; c < TK; ++c) {
       const float a = xs[ty][c], b = ys[tx][c];
-      xn += a * a;
-      yn += b * b;
-      xy += a * b;
+      xn = fmaf(a, a, xn);
+      yn = fmaf(b, b, yn);
+      xy = fmaf(a, b, xy);
     }
     __syncthreads();
   }
@@ -80,16 +79,13 @@ __global__ void rbf_thin(const TX* __restrict__ x, const TY* __restrict__ y,
   float xn = 0.0f, yn = 0.0f, xy = 0.0f;
   for (int k = lane; k < d; k += 32) {
     const float a = to_f32(xr[k]), b = to_f32(yr[k]);
-    xn += a * a;
-    yn += b * b;
-    xy += a * b;
+    xn = fmaf(a, a, xn);
+    yn = fmaf(b, b, yn);
+    xy = fmaf(a, b, xy);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    xn += __shfl_xor_sync(0xffffffffu, xn, off);
-    yn += __shfl_xor_sync(0xffffffffu, yn, off);
-    xy += __shfl_xor_sync(0xffffffffu, xy, off);
-  }
+  xn = warp_sum(xn);
+  yn = warp_sum(yn);
+  xy = warp_sum(xy);
   if (lane == 0) out[(size_t)i * m + j] = rbf_from_sums(xn, yn, xy, gamma);
 }
 

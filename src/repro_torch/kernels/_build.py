@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles on its own
 into ``build/repro_torch/<name>-<digest>.so`` at the repository root
 (``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared``).
-The digest covers the source and its flags, so an edited source rebuilds and
-a stale library is never loaded.  ``build()`` starts one ``nvcc`` per source,
+The digest covers the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and a stale library is never
+loaded.  ``build()`` starts one ``nvcc`` per source,
 all at once, and waits for every one of them; ``load()`` builds what is
 missing and opens it with ``ctypes``.
 
@@ -33,6 +34,7 @@ SOURCES = {
     "gss": ("-fmad=false",),
     "merge_multi": ("-fmad=false",),
     "merge_event": ("-fmad=false",),
+    "train_step": ("-fmad=false",),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -54,8 +56,10 @@ def _flags(name: str) -> tuple[str, ...]:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 

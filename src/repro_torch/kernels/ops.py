@@ -17,10 +17,12 @@ import torch
 from . import gss as gss_kernel
 from . import merge_event as merge_event_kernel
 from . import merge_lookup, merge_multi, rbf_kernel, ref
+from . import train_step as train_step_kernel
 
 IMPLS = ("auto", "cuda", "ref")
 _KERNELS = {"rbf_matrix": rbf_kernel, "merge_scores": merge_lookup, "gss": gss_kernel,
-            "multi_merge_scores": merge_multi, "merge_event": merge_event_kernel}
+            "multi_merge_scores": merge_multi, "merge_event": merge_event_kernel,
+            "train_step": train_step_kernel}
 
 
 def _use_kernel(impl: str, t: torch.Tensor) -> bool:
@@ -159,3 +161,28 @@ def merge_event(sv_x, alpha, kmat, count, over, table, *, decisions=None, impl: 
                                                    table.h_table, table.wd_table, decisions)
     return ref.merge_event(sv_x, alpha, kmat, count, over, table.h_table, table.wd_table,
                            decisions)
+
+
+def train_step(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb, k_bb, table, *,
+               budget: int, lambda_: float, gamma: float, batch_size: int,
+               maintenance: str = "merge", merge_batch: int = 4, impl: str = "auto"):
+    """One whole training step for every class, IN PLACE: margin rows, Pegasos
+    shrink and violator insert with the cache insert, then ``batch_size``
+    masked ``merge`` or ``multi-merge`` event rounds.
+
+    sv_x: (C, s, d) fp32 or bf16; alpha: (C, s); kmat: (C, s, s) fp32 kernel
+    cache; count, step, n_inserts, n_merges: (C,) int32; xb: (batch, d);
+    yb: (C, batch) one-vs-rest targets; k_bb: (batch, batch) ``k(xb, xb)``;
+    ``table`` a ``MergeLookupTable``.  ``sv_x``, ``alpha``, ``kmat``,
+    ``count``, ``n_inserts`` and ``n_merges`` are updated in place, by the
+    kernel and the plain version alike (the TPU kernel aliases its outputs to
+    its inputs); the call returns them with ``step + 1`` as ``(sv_x, alpha,
+    kmat, count, step + 1, n_inserts, n_merges)``.  Clone the state first to
+    keep it."""
+    kw = dict(budget=budget, lambda_=lambda_, gamma=gamma, batch_size=batch_size,
+              maintenance=maintenance, merge_batch=merge_batch)
+    args = (sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb, k_bb,
+            table.h_table, table.wd_table)
+    if _use_kernel(impl, sv_x):
+        return train_step_kernel.train_step_cuda(*args, **kw)
+    return ref.train_step_fused(*args, **kw)

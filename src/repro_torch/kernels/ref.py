@@ -12,6 +12,7 @@ from __future__ import annotations
 import functools
 import math
 
+import numpy as np
 import torch
 
 # Scores at/above this mean "no valid partner".  The plain scorer marks
@@ -179,6 +180,13 @@ def put_rows(a, t, rows):
     return torch.where(hit.view(c, n, *pad), rows[iota(c, a.device)[:, None], src], a)
 
 
+def put_rows_and_columns(a, t, rows):
+    """``a`` (C, n, n) with rows ``t``, then the same columns, set from
+    ``rows`` (C, K, n), out of place (``put_rows``' drop rule)."""
+    a = put_rows(a, t, rows)
+    return put_rows(a.transpose(1, 2), t, rows).transpose(1, 2)
+
+
 def put_block(a, r, q, vals):
     """``a`` (C, n, n) with ``a[c, r[c, i], q[c, j]] = vals[c, i, j]``, out of
     place; pairs where either index equals n are dropped."""
@@ -280,3 +288,174 @@ def merge_event(sv_x, alpha, kmat, count, over, h_table, wd_table, decisions=Non
         made = torch.stack([i_min, j_star, has_partner.long()], dim=1)
         decisions[over] = made[over].to(decisions.dtype)
     return sv_x, alpha, kmat
+
+
+def multi_merge_event(sv_x, alpha, kmat, count, over, h_table, wd_table, *, budget: int,
+                      merge_batch: int):
+    """One multi-merge maintenance round over stacked classes, off the kernel
+    cache (the plain version of the ``train_step`` kernel's multi-merge rounds).
+
+    The class-axis restatement of ``core.budget._multi_merge_once`` with the
+    cache and Lookup-WD scoring, plus ``core.kernel_cache.apply_multi_merge``
+    (the kernels package does not import ``core``; the tests pin the two bit
+    for bit).  Per class with ``over`` set: the P = ``merge_batch``
+    smallest-|alpha| active SVs, lower slot first on ties, are the fixed
+    partners; each scores every candidate from both tables; in |alpha| order a
+    pair executes unless its slot was taken as an earlier partner or the
+    excess is already covered, and merges with its best untaken same-sign
+    candidate (or falls back to removal); z_q overwrites slot a_q, its cache
+    row comes from the log-space combine, the (P, P) block among the z's is
+    symmetrized with its diagonal pinned to 1; then the k-th hole below the
+    new watermark takes the k-th surviving slot above it.  Classes with
+    ``over`` clear come back bitwise unchanged.
+
+    sv_x: (C, s, d); alpha: (C, s); kmat: (C, s, s) fp32; count: (C,) int;
+    over: (C,) bool.  Returns new ``(sv_x, alpha, kmat, count)``; the inputs
+    are not modified.
+    """
+    c, s = alpha.shape
+    p = merge_batch
+    dev = alpha.device
+    idx, ar = iota(s, dev), iota(c, dev)
+    arc = ar[:, None]
+    active = idx < count[:, None]
+
+    # 1. fixed partners (top_k's order: a stable sort)
+    abs_a = torch.where(active, alpha.abs(), torch.inf)
+    a_idx = torch.sort(abs_a, dim=1, stable=True).indices[:, :p]          # (C, P)
+    a_min = alpha[arc, a_idx]
+
+    # 2. kappa rows from the cache; 3. both tables at every candidate
+    kappa_rows = kmat[arc, a_idx].to(alpha.dtype)
+    valid = (active[:, None, :] & (a_min[:, :, None] * alpha[:, None, :] > 0)
+             & (idx[None, None, :] != a_idx[:, :, None]))
+    wd, h = multi_merge_scores_classes(alpha, kappa_rows, valid, a_min, h_table, wd_table)
+
+    # 4. greedy disjoint pair choice in |alpha| order
+    excess = count - budget
+    taken = torch.zeros((c, s), dtype=torch.bool, device=dev)
+    consumed = torch.zeros((c, p), dtype=torch.bool, device=dev)
+    n_exec = torch.zeros_like(count)
+    b_list, merged_list, exec_list = [], [], []
+    for q in range(p):
+        wd_q = torch.where(taken, torch.inf, wd[:, q])
+        j_q = torch.argmin(wd_q, dim=1)
+        exec_q = ~consumed[:, q] & (n_exec < excess)
+        merged_q = exec_q & (wd_q[ar, j_q] < NO_PARTNER)
+        b_list.append(j_q)
+        merged_list.append(merged_q)
+        exec_list.append(exec_q)
+        taken = (taken | ((idx == j_q[:, None]) & merged_q[:, None])
+                 | ((idx == a_idx[:, q, None]) & exec_q[:, None]))
+        consumed = consumed | ((a_idx == j_q[:, None]) & merged_q[:, None])
+        n_exec = n_exec + exec_q.to(n_exec.dtype)
+    b_idx = torch.stack(b_list, dim=1)
+    merged = torch.stack(merged_list, dim=1)
+    execute = torch.stack(exec_list, dim=1)
+
+    # 5. merge math, every gather before any write
+    h_star = h[arc, iota(p, dev), b_idx]
+    kap = torch.clamp(kappa_rows[arc, iota(p, dev), b_idx], 0.0, 1.0)
+    u = 1.0 - h_star
+    a_z = a_min * _kappa_pow(kap, u * u) + alpha[arc, b_idx] * _kappa_pow(kap, h_star * h_star)
+    hz = h_star[..., None]
+    z = hz * sv_x[arc, a_idx] + (1.0 - hz) * sv_x[arc, b_idx]
+    write_idx = torch.where(merged, a_idx, s)
+    hole_idx = torch.where(merged, b_idx, torch.where(execute, a_idx, s))
+    lk = _safe_log(kmat[arc, torch.cat([a_idx, b_idx], dim=1)])         # (C, 2P, s)
+    lk_a, lk_b = lk[:, :p], lk[:, p:]
+    lk_ab = lk_a.gather(2, b_idx[:, :, None])                           # (C, P, 1)
+    lz = torch.clamp(hz * lk_a + (1.0 - hz) * lk_b - hz * (1.0 - hz) * lk_ab, max=0.0)
+    hr = h_star[:, None, :]
+    cross = torch.exp(torch.clamp(
+        hr * lz.gather(2, a_idx[:, None, :].expand(c, p, p))
+        + (1.0 - hr) * lz.gather(2, b_idx[:, None, :].expand(c, p, p))
+        - hr * (1.0 - hr) * lk_ab[:, None, :, 0], max=0.0))
+    cross = 0.5 * (cross + cross.transpose(1, 2))
+    cross = torch.where(torch.eye(p, dtype=torch.bool, device=dev), 1.0, cross).to(kmat.dtype)
+    km = put_rows_and_columns(kmat, write_idx, torch.exp(lz).to(kmat.dtype))
+    km = put_block(km, write_idx, write_idx, cross)
+    sv = put_rows(sv_x, write_idx, z.to(sv_x.dtype))
+    al = put_rows(alpha, write_idx, a_z.to(alpha.dtype))
+
+    # 6. targeted-move compaction
+    hole_mask = torch.zeros((c, s + 1), dtype=torch.bool, device=dev).scatter_(
+        1, hole_idx, True)[:, :s]
+    new_count = count - n_exec
+    below = idx < new_count[:, None]
+    dst = torch.sort(torch.where(hole_mask & below, idx, s), dim=1).values[:, :p]
+    src = torch.sort(torch.where(active & ~hole_mask & ~below, idx, s), dim=1).values[:, :p]
+    src_c = src.clamp(max=s - 1)
+    rows = km[arc, src_c]
+    km = put_rows_and_columns(km, dst, rows)
+    km = put_block(km, dst, dst, rows.gather(2, src_c[:, None, :].expand(c, p, p)))
+    sv = put_rows(sv, dst, sv[arc, src_c])
+    al = torch.where(below, put_rows(al, dst, al[arc, src_c]), 0.0)
+
+    ov = over.to(torch.bool)
+    return (torch.where(ov[:, None, None], sv, sv_x), torch.where(ov[:, None], al, alpha),
+            torch.where(ov[:, None, None], km, kmat), torch.where(ov, new_count, count))
+
+
+def train_step_fused(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb, k_bb,
+                     h_table, wd_table, *, budget: int, lambda_: float, gamma: float,
+                     batch_size: int, maintenance: str = "merge", merge_batch: int = 4):
+    """One whole training step for every class, IN PLACE (the plain version of
+    the ``train_step`` kernel).
+
+    Per class: the margin rows ``k(xb, sv_c)`` from ONE ``rbf_matrix`` call
+    against the flattened (C * s, d) bank; the Pegasos shrink and violator
+    insert with ``core.bsgd.insert_from_rows``' expressions (float32
+    ``eta = 1 / (lambda t)``, the shrink ``1 - eta lambda`` rounded once
+    through a float64 product); the cache insert of
+    ``core.kernel_cache.insert_rows`` (rows, then columns, then the
+    diagonal, the margin rows reused and ``k_bb`` patched in among the new
+    slots); then ``batch_size`` masked rounds of ``merge_event`` or
+    ``multi_merge_event``, each a bitwise no-op for a class at or under
+    ``budget``.
+
+    sv_x: (C, s, d); alpha: (C, s); kmat: (C, s, s) fp32; count, step,
+    n_inserts, n_merges: (C,) int32; xb: (batch, d); yb: (C, batch)
+    one-vs-rest targets in {-1, +1}; k_bb: (batch, batch) ``k(xb, xb)``.
+    ``sv_x``, ``alpha``, ``kmat``, ``count``, ``n_inserts`` and ``n_merges``
+    are updated in place; returns them with ``step + 1`` as ``(sv_x, alpha,
+    kmat, count, step + 1, n_inserts, n_merges)``.
+    """
+    c, s, d = sv_x.shape
+    b = xb.shape[0]
+    idx = iota(s, alpha.device)
+    k_b = rbf_matrix(xb, sv_x.reshape(c * s, d), gamma).view(b, c, s).transpose(0, 1).contiguous()
+
+    cnt = count[:, None]
+    f = (k_b.to(alpha.dtype) @ torch.where(idx < cnt, alpha, 0.0)[..., None])[..., 0]
+    margin = yb * f
+    eta = 1.0 / (lambda_ * step)
+    shrink = (1.0 - eta.double() * float(np.float32(lambda_))).to(torch.float32)
+    viol = margin < 1.0
+    pos = torch.where(viol, cnt + torch.cumsum(viol.to(torch.int32), -1) - 1, s)
+    written, src = torch.max(pos.unsqueeze(-1) == idx, dim=-2)                  # (C, s)
+    sv = torch.where(written.unsqueeze(-1), xb.to(sv_x.dtype)[src], sv_x)
+    new_alpha = (eta[:, None] * yb / batch_size).to(alpha.dtype)
+    al = torch.where(written, new_alpha.gather(-1, src), alpha * shrink[:, None])
+    n_new = viol.sum(-1).to(torch.int32)
+    rows = put_rows(k_b.to(kmat.dtype).transpose(1, 2), pos,
+                    k_bb.to(kmat.dtype).T.expand(c, b, b)).transpose(1, 2)
+    km = put_diag(put_rows_and_columns(kmat, pos, rows), pos, 1.0)
+
+    cnt, n_mrg = count + n_new, n_merges
+    for _ in range(batch_size):
+        over = cnt > budget
+        if maintenance == "merge":
+            merge_event(sv, al, km, cnt, over, h_table, wd_table)
+            cnt = cnt - over.to(cnt.dtype)
+        else:
+            sv, al, km, cnt = multi_merge_event(sv, al, km, cnt, over, h_table, wd_table,
+                                                budget=budget, merge_batch=merge_batch)
+        n_mrg = n_mrg + over.to(n_mrg.dtype)
+    sv_x.copy_(sv)
+    alpha.copy_(al)
+    kmat.copy_(km)
+    count.copy_(cnt)
+    n_inserts.add_(n_new)
+    n_merges.copy_(n_mrg)
+    return sv_x, alpha, kmat, count, step + 1, n_inserts, n_merges

@@ -166,9 +166,6 @@ def test_no_cuda_without_explicit_cpu_raises(entry, data, monkeypatch):
 
 
 @pytest.mark.parametrize("knob,item", [
-    (dict(use_kernel_cache=True, step_engine="pallas"), "Queue 2 kernel 6"),
-    (dict(use_kernel_cache=True, step_engine="pallas", maintenance="multi-merge"),
-     "Queue 2 kernel 6"),
     (dict(use_kernel_cache=True, solver="bdca"), "Queue 1 item 9"),
     (dict(use_kernel_cache=True, solver="bdca", maintenance_engine="pallas"), "Queue 1 item 9"),
 ])
@@ -183,6 +180,8 @@ def test_unported_knobs_raise_not_implemented(knob, item):
     dict(use_kernel_cache=True, maintenance="quantized"),
     dict(use_kernel_cache=True, maintenance="removal-project"),
     dict(use_kernel_cache=True, maintenance_engine="pallas"), dict(maintenance="multi-merge"),
+    dict(use_kernel_cache=True, step_engine="pallas"),
+    dict(use_kernel_cache=True, step_engine="pallas", maintenance="multi-merge"),
 ])
 def test_ported_knobs_construct(knob):
     cfg = tbsgd.BSGDConfig(**knob)
