@@ -12,29 +12,37 @@ non-zero exit code:
   3. each kernel against its plain PyTorch version on the card, at the
      training path's shapes and at ragged ones: max error against the stated
      tolerance, and the time per call of the kernel, the plain version and,
-     where one exists, one PyTorch library call;
+     where one exists, one PyTorch library call; ``merge_pick`` bit for bit
+     at the binary path's shape, on rows, ragged, with exact score ties and
+     with rows that have no valid candidate; the wrappers' raw stream against
+     ``torch.cuda.current_stream()``; and the host time of one
+     ``merge_scores`` call part by part, each part as it was before the lean
+     launch path and as it is now;
   4. the main path: ``fit`` for one epoch and ``accuracy`` on an ADULT
      stand-in at the LIBSVM a9a training set's size (32,561 x 123, two
      Gaussian blobs from a numpy seed, 20% test split), gamma 2^-7,
-     lambda 1e-5, budget 500, batch 1, once with ``method="lookup-wd"`` and
-     once with ``"gss"``.  Every kernel's launch counter is 0 before and
-     read after;
+     lambda 1e-5, budget 500, batch 1, once with ``method="lookup-wd"``
+     (one ``merge_pick`` launch a step, no ``merge_scores``) and once with
+     ``"gss"``.  Every kernel's launch counter is 0 before and read after;
   5. the first 2,000 steps of the same epoch again on the card and on the CPU
      (plain versions), with their integer state compared step by step;
   6. a profiled window of training steps: device busy time per step;
-  7. the class-axis kernels (``multi_merge_scores``, ``merge_event``) against
-     their plain versions on the card, at the class-axis runs' shapes and at
-     ragged ones, fp32 and bf16 banks, with a forced removal fallback;
+  7. the class-axis kernels (``multi_merge_scores``, ``multi_merge_choose``,
+     ``merge_event``) against their plain versions on the card, at the
+     class-axis runs' shapes and at ragged ones, fp32 and bf16 banks, with a
+     forced removal fallback; ``multi_merge_choose`` bit for bit also at
+     P = 1 and P = 8, with exact score ties and a class below its budget;
   8. the one-vs-rest class axis at the widths of LIBSVM's multi-class
      ``mnist`` (10 classes, 780 features, 60,000 training and 10,000 test
      rows; a numpy stand-in, ``make_blobs_multiclass`` seed 0, sep 0.12,
      noise 1.0), gamma 2^-11, lambda 1e-5, budget 500 per class, batch 8,
      the kernel cache and Lookup-WD: run (a), one epoch with the fused
      event engine (``maintenance_engine="pallas"``, the ``merge_event``
-     kernel), and run (b), ``MC_STEPS["b"]`` steps of the epoch (a ``CUT:``
-     line says so) with ``maintenance="multi-merge"``, merge_batch 4 (the
-     ``multi_merge_scores`` kernel).  Every launch counter is 0 before each
-     run and read after it;
+     kernel), and run (b), ``MC_STEPS["b"]`` steps of the epoch with
+     ``maintenance="multi-merge"``, merge_batch 4 (one ``multi_merge_choose``
+     launch a maintenance round, 8 a step, and no ``multi_merge_scores``);
+     a ``CUT:`` line says how many steps each run trains.  Every launch
+     counter is 0 before each run and read after it;
   9. the first 1,000 steps of run (a) on the card and on the CPU in lockstep,
      integer state compared step by step (where it first differs, the cause
      must be a near-tie: a margin on either side of 1, or tied event
@@ -52,7 +60,12 @@ non-zero exit code:
      the fused kernel and through run (a)'s composed engine, integer state
      compared step by step (where they first differ, the cause must be a
      near-tie), then the cache invariants of both;
- 13. a profiled window of runs (c) and (d) and of the binary fused run.
+ 13. a profiled window of runs (c) and (d) and of the binary fused run;
+ 14. 300 more steps of run (b)'s configuration from where run (b) stopped,
+     on the card, with every maintenance round run twice from the same state,
+     through the ``multi_merge_choose`` kernel and through the plain scoring
+     and choice (``impl="ref"``): count, sv_x, alpha and kmat equal bit for
+     bit at every round.
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 It imports nothing from the JAX package.  Without a CUDA device, or without
@@ -81,18 +94,19 @@ PROFILE_STEPS = 300
 MC_CLASSES, MC_DIM, MC_TRAIN, MC_TEST = 10, 780, 60_000, 10_000
 MC_GAMMA, MC_LAMBDA, MC_BUDGET, MC_BATCH = 2.0 ** -11, 1e-5, 500, 8
 MC_REPLAY_STEPS = 1_000
-# profiled steps per class-axis run: run (b) launches ~2,500 kernels a step,
+# profiled steps per class-axis run: run (b) launches ~1,500 kernels a step,
 # which the profiler's bookkeeping makes slow to read back
 MC_PROFILE_STEPS = {"a": 40, "b": 8, "c": 200, "d": 200}
 # steps of each class-axis run; None is one whole epoch (MC_TRAIN // MC_BATCH).
-# Run (b) is cut to stay inside the time limit: a whole epoch took 475 s of
-# the script's ~890 s on one H100 (its masked multi-merge rounds launch
-# ~2,700 small kernels a step; see PERF.md)
+# Run (b) is cut to keep the script near 500 s: with one multi_merge_choose
+# launch a round its whole epoch took 253 s of a ~580 s script on one H100
+# (PERF.md); phase 14 goes on from where it stops
 MC_STEPS = {"a": None, "b": 3_000, "c": None, "d": None}
 MC_RUNS = {"a": "merge_event engine", "b": "multi-merge", "c": "fused step, merge",
            "d": "fused step, multi-merge"}
 LOCKSTEP_STEPS = 1_000
 FUSED_PROFILE_STEPS = 1_000
+CHOOSE_LOCKSTEP_STEPS = 300
 
 
 def check(cond: bool, what: str) -> None:
@@ -189,7 +203,7 @@ def phase_build(_build):
                 print(f"  {name}: {line.strip()}")
 
 
-def phase_kernels(ops, ref, table):
+def phase_kernels(ops, ref, _build, table):
     """Each kernel against its plain version; returns the main-shape records."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
@@ -261,6 +275,24 @@ def phase_kernels(ops, ref, table):
         max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
         device_ms=device_ms(lambda: ops.merge_scores(alpha, kappa, valid, a_min, wd_table,
                                                      impl="cuda"), "merge_scores_kernel"))
+    raw = _build.stream(torch.cuda.current_device())
+    print(f"raw stream {raw} equals torch.cuda.current_stream().cuda_stream "
+          f"{raw == torch.cuda.current_stream().cuda_stream}")
+    check(raw == torch.cuda.current_stream().cuda_stream, "the wrappers' raw stream")
+    from repro_torch.kernels import merge_lookup
+    host_breakdown(
+        "merge_scores", (alpha, kappa, valid, a_min, wd_table), (alpha, kappa, a_min, wd_table),
+        alpha.shape, ("merge_lookup", "merge_scores_launch", "pppppiiiippp"),
+        lambda wd_o, in_o: [t.data_ptr() for t in (alpha, kappa, valid, a_min, wd_table)]
+        + [g0, g1, s, s, wd_o.data_ptr(), in_o.data_ptr(), raw],
+        lambda: ops._use_kernel("auto", alpha) and (a_min if a_min.dim() == 1
+                                                    else a_min.reshape(-1)),
+        lambda: ops._use_kernel("auto", alpha),
+        {"whole call (ops.merge_scores)": lambda: ops.merge_scores(
+            alpha, kappa, valid, a_min, wd_table, impl="cuda"),
+         "whole call (wrapper alone)": lambda: merge_lookup.merge_scores_cuda(
+             alpha, kappa, valid, a_min, wd_table)}, k_ms, l_ms)
+    records["merge_pick"] = phase_pick(ops, ref, table, gen)
 
     # gss: 501 problems, 10 (eps 1e-2) and 48 (eps 1e-10) bracket steps
     m_in = torch.rand(s, generator=gen).to(dev)
@@ -284,6 +316,170 @@ def phase_kernels(ops, ref, table):
                 device_ms=device_ms(lambda: ops.gss_solve(m_in, k_in, n_iters=10, impl="cuda"),
                                     "gss_kernel"))
     return records
+
+
+def _table_cells(table, m, k):
+    """The distinct cells of ``table`` that bilinear lookups at (m, k) read."""
+    g0, g1 = table.shape
+    i0 = torch.clamp(torch.floor(m * (g0 - 1)).long(), 0, g0 - 2)
+    j0 = torch.clamp(torch.floor(k * (g1 - 1)).long(), 0, g1 - 2)
+    return torch.cat([i0 * g1 + j0, i0 * g1 + j0 + 1, (i0 + 1) * g1 + j0,
+                      (i0 + 1) * g1 + j0 + 1]).unique().numel()
+
+
+def _pick_state(gen, r, s, dev, case="random"):
+    """(alpha, kappa, count, i_min, a_min) of R rows for one merge_pick call:
+    mixed signs, counts below s; ``ties``: two slots of equal alpha and kappa
+    that score best; ``all-invalid``: the fixed partner is the row's only
+    positive alpha, so no candidate is valid."""
+    alpha = (torch.randn(r, s, generator=gen).abs() * 0.2 + 0.01)
+    alpha = alpha * torch.where(torch.rand(r, s, generator=gen) < 0.4, -1.0, 1.0)
+    kappa = torch.rand(r, s, generator=gen)
+    count = torch.randint(max(s // 2, 1), s + 1, (r,), generator=gen).to(torch.int32)
+    if case == "ties" and s > 10:
+        alpha, kappa = alpha.abs() + 0.3, kappa * 0.9
+        alpha[:, 2], alpha[:, [5, 9]], kappa[:, [5, 9]] = 0.05, 0.06, 0.999
+        count[:] = s
+    if case == "all-invalid":
+        alpha = -alpha.abs()
+        alpha[:, 0] = 0.001
+    alpha = torch.where(torch.arange(s) < count[:, None], alpha, 0.0)
+    i_min = torch.argmin(torch.where(torch.arange(s) < count[:, None], alpha.abs(), torch.inf),
+                         dim=1)
+    a_min = alpha.gather(1, i_min[:, None])[:, 0]
+    return [t.to(dev).contiguous() for t in (alpha, kappa, count, i_min, a_min)]
+
+
+def _pick_bound(alpha, kappa, count, i_min, a_min, table):
+    """Least time of one merge_pick call on these inputs: every input once, the
+    WD-table cells the valid candidates read, four h-table cells a row, the
+    three outputs; ~25 operations a valid candidate (coordinates, bilinear
+    mix, score) and 4 a candidate (mask, argmin)."""
+    from repro_torch.kernels import ref
+    r, s = alpha.shape
+    idx = torch.arange(s, device=alpha.device)
+    valid = (idx < count[:, None]) & (alpha * a_min[:, None] > 0) & (idx != i_min[:, None])
+    m, k = ref.merge_coords(a_min[:, None], alpha, kappa)
+    cells = _table_cells(table.wd_table, m[valid], k[valid])
+    n_bytes = 2 * 4 * r * s + r * (4 + 8 + 4) + 4 * cells + 16 * r + r * (8 + 4 + 4)
+    return bound_ms(n_bytes, 25.0 * int(valid.sum()) + 4.0 * r * s) + (cells,)
+
+
+def phase_pick(ops, ref, table, gen):
+    """merge_pick against its plain version on the card, bit for bit: the binary
+    path's shape (one row of 501 without a row axis), the class axis's rows,
+    a ragged shape, exact score ties and rows with no valid candidate; then
+    its timing at the binary path's shape."""
+    dev = torch.device("cuda")
+    tab = table.to(dev)
+    record = None
+    for label, r, s, case in [("binary path", 1, 501, "random"), ("class rows", MC_CLASSES, 508,
+                              "random"), ("ragged", 3, 37, "random"), ("ties", 4, 64, "ties"),
+                              ("all-invalid", 2, 40, "all-invalid"), ("s=1", 2, 1, "random")]:
+        alpha, kappa, count, i_min, a_min = _pick_state(gen, r, s, dev, case)
+        if label == "binary path":       # the binary event's form: no row axis
+            alpha, kappa, count = alpha[0], kappa[0], count[0]
+        got = ops.merge_pick(alpha, kappa, count, i_min, a_min, tab, impl="cuda")
+        want = ops.merge_pick(alpha, kappa, count, i_min, a_min, tab, impl="ref")
+        j, wd, h = got
+        none = want[1] >= ref.NO_PARTNER
+        equal = (bool(torch.equal(j, want[0])) and bool(torch.equal(wd[~none], want[1][~none]))
+                 and bool(torch.equal(h, want[2])) and bool((wd[none] >= ref.NO_PARTNER).all()))
+        err = max((wd - want[1])[~none].abs().max().item() if bool((~none).any()) else 0.0,
+                  (h - want[2]).abs().max().item())
+        line = (f"merge_pick {label} R={r} s={s}: bit-equal {equal} (j_star, wd_j where a "
+                f"partner exists, h_j; removal rows {int(none.sum())}/{none.numel()}) "
+                f"j_star {j[:4].tolist()}")
+        if case == "ties":
+            line += f" ties to the lower slot {bool((j == 5).all())}"
+            check(bool((j == 5).all()), "merge_pick: an exact tie not broken to the lower slot")
+        if case == "all-invalid" or s == 1:
+            check(bool(none.all()) and bool((j == 0).all()),
+                  f"merge_pick {label}: a row without candidates must pick slot 0 and remove")
+        if label == "binary path":
+            k_ms = time_call(lambda: ops.merge_pick(alpha, kappa, count, i_min, a_min, tab,
+                                                    impl="cuda"))
+            p_ms = time_call(lambda: ops.merge_pick(alpha, kappa, count, i_min, a_min, tab,
+                                                    impl="ref"))
+            dm = device_ms(lambda: ops.merge_pick(alpha, kappa, count, i_min, a_min, tab,
+                                                  impl="cuda"), "merge_pick_kernel")
+            b_ms, b_by, cells = _pick_bound(alpha[None], kappa[None], count.reshape(1), i_min,
+                                            a_min, tab)
+            line += (f" kernel {k_ms * 1e3:.2f} us (device {us(dm)}) plain {p_ms * 1e3:.2f} us "
+                     f"bound {b_ms * 1e3:.4f} us ({b_by}, {cells} table cells); library call: none")
+            record = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None, device_ms=dm)
+        print(line)
+        check(equal, f"merge_pick {label} against its plain version")
+    return record
+
+
+def _per_call_us(fn, calls: int = 2_000) -> float:
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def host_breakdown(label, ins, floats, out_shape, entry, launch_args, old_ops, new_ops,
+                   whole, call_ms, grid_ms):
+    """Host microseconds of one ``label`` call, part by part: each part of the
+    wrapper as it was before the lean launch path (the earlier wrapper's
+    steps, restated here) and as it is now, timed in turns (old, new, new, old) over 2,000
+    calls each, no part waiting for the card; then the parts both share.
+
+    ins: the tensor inputs, the first one's device and shape leading;
+    floats: those that must be fp32; out_shape: the shape of each of the two
+    outputs; entry: ``(library, symbol, argtypes)`` of the C entry point;
+    launch_args(out0, out1): the C call's arguments; old_ops/new_ops: the
+    ops layer's own work before and now; whole: ``{name: call}``."""
+    from repro_torch.kernels import _build
+    first, rest = ins[0], ins[1:]
+    dev, idx = first.device, first.get_device()
+    f32 = torch.float32
+    lib, sym, argtypes = entry
+    parts = {
+        "device checks": (
+            lambda: not first.is_cuda or any(t.device != dev for t in rest),
+            lambda: idx < 0 or any(t.get_device() != idx for t in rest)),
+        "dtype checks": (
+            lambda: any(t.dtype != f32 for t in floats),
+            lambda: all(t.dtype == f32 for t in floats)),
+        "contiguous inputs": (
+            lambda: [t.contiguous() for t in ins],
+            lambda: [t if t.is_contiguous() else t.contiguous() for t in ins]),
+        "output allocation": (
+            lambda: (torch.empty(out_shape, dtype=f32, device=dev),
+                     torch.empty(out_shape, dtype=f32, device=dev)),
+            lambda: first.new_empty((2, *out_shape)).unbind(0)),
+        "entry point lookup": (
+            lambda: getattr(_build.load(lib), sym).argtypes is None,
+            lambda: _build.function(lib, sym, argtypes)),
+        "stream": (
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+            lambda: _build.stream(idx)),
+        "ops layer": (old_ops, new_ops),
+    }
+    outs = first.new_empty((2, *out_shape)).unbind(0)
+    fn = _build.function(lib, sym, argtypes)
+    args = launch_args(*outs)
+    shared = {f"data_ptr of {len(ins) + 2} tensors": lambda: [t.data_ptr() for t in (*ins, *outs)],
+              "ctypes call and launch": lambda: fn(*args), **whole}
+    old_sum = new_sum = 0.0
+    for name, (old, new) in parts.items():
+        times = {"old": [], "new": []}
+        for which in ("old", "new", "new", "old"):
+            times[which].append(_per_call_us(old if which == "old" else new))
+        o, w = statistics.mean(times["old"]), statistics.mean(times["new"])
+        old_sum, new_sum = old_sum + o, new_sum + w
+        print(f"  {label} host part {name}: before {o:.2f} us, now {w:.2f} us")
+    for name, fn_ in shared.items():
+        t = statistics.mean(_per_call_us(fn_) for _ in range(2))
+        print(f"  {label} host part {name}: {t:.2f} us")
+    torch.cuda.synchronize()
+    print(f"  {label} host parts that changed: before {old_sum:.2f} us, now {new_sum:.2f} us; "
+          f"{label} {call_ms * 1e3:.2f} us a call (CUDA events) against grid_sample "
+          f"{grid_ms * 1e3:.2f} us")
 
 
 def adult_standin(make_blobs, train_test_split):
@@ -320,8 +516,15 @@ def phase_main(core, ops, data):
         check(run["count"] <= BUDGET, f"{method}: count {run['count']} > budget")
         check(run["n_merges"] > 0, f"{method}: no merge events")
         check(launches["rbf_matrix"] > 0, f"{method}: rbf_matrix never launched")
-        scorer = "merge_scores" if method == "lookup-wd" else "gss"
-        check(launches[scorer] > 0, f"{method}: {scorer} never launched")
+        if method == "lookup-wd":
+            # one event a step (batch 1), its whole choice one merge_pick launch
+            check(launches["merge_pick"] == steps, f"lookup-wd: merge_pick launched "
+                  f"{launches['merge_pick']} times in {steps} steps")
+        else:
+            check(launches["gss"] > 0, "gss: gss never launched")
+        # the lookup-wd event's choice is merge_pick: merge_scores runs on neither path
+        check(launches["merge_scores"] == 0, f"{method}: merge_scores launched "
+              f"{launches['merge_scores']} times; the path now runs merge_pick")
         runs[method] = (run, st, cfg)
     counts = ops.launch_counts()
     gap = abs(runs["lookup-wd"][0]["accuracy"] - runs["gss"][0]["accuracy"])
@@ -466,6 +669,10 @@ def phase_class_kernels(ops, ref, table):
                                                  device_ms=dm)
         print(line)
         check(equal and invalid_ok, f"multi_merge_scores C={c} P={p} s={s} against its plain version")
+        if (c, p, s) == (MC_CLASSES, 4, MC_BUDGET + MC_BATCH):
+            _multi_scores_breakdown(ops, tab, alpha, kappa, valid, a_min, k_ms, l_ms)
+
+    records["multi_merge_choose"] = phase_choose(ops, ref, tab, gen)
 
     # merge_scores with one fixed partner per row (the class axis's layout)
     c, s = MC_CLASSES, MC_BUDGET + MC_BATCH
@@ -525,6 +732,126 @@ def phase_class_kernels(ops, ref, table):
                       f"{r['plain_ms'] * 1e3:.2f} us bound {r['bound_ms'] * 1e3:.4f} us "
                       f"({r['bound_by']}); library call: none")
     return records
+
+
+def _multi_scores_breakdown(ops, tab, alpha, kappa, valid, a_min, call_ms, grid_ms):
+    """``host_breakdown`` of one class-batched multi_merge_scores call."""
+    from repro_torch.kernels import _build, merge_multi
+    c, p, s = kappa.shape
+    g0, g1 = tab.wd_table.shape
+    raw = _build.stream(alpha.get_device())
+    shape = kappa.shape
+
+    def old_ops():   # the earlier ops layer: the four inputs folded to rows, two output views
+        rows = (alpha.reshape(-1, s), kappa.reshape(-1, s), valid.reshape(-1, s),
+                a_min.reshape(-1))
+        out = kappa.reshape(-1, s)
+        return rows, out.view(shape), out.view(shape)
+
+    host_breakdown(
+        "multi_merge_scores", (alpha, kappa, valid, a_min, tab.h_table, tab.wd_table),
+        (alpha, kappa, a_min, tab.h_table, tab.wd_table), shape,
+        ("merge_multi", "multi_merge_scores_launch", "pipppppiiiippp"),
+        lambda wd_o, h_o: [alpha.data_ptr(), p, kappa.data_ptr(), valid.data_ptr(),
+                           a_min.data_ptr(), tab.h_table.data_ptr(), tab.wd_table.data_ptr(),
+                           g0, g1, c * p, s, wd_o.data_ptr(), h_o.data_ptr(), raw],
+        old_ops, lambda: ops._use_kernel("auto", alpha),
+        {"whole call (ops.multi_merge_scores)": lambda: ops.multi_merge_scores(
+            alpha, kappa, valid, a_min, tab, impl="cuda"),
+         "whole call (wrapper alone)": lambda: merge_multi.multi_merge_scores_cuda(
+             alpha, kappa, valid, a_min, tab.h_table, tab.wd_table)}, call_ms, grid_ms)
+
+
+def _choose_state(gen, c, p, s, budget, dev, case="random"):
+    """One multi_merge_choose call's inputs, as ``_multi_merge_once`` forms them:
+    classes over and under ``budget`` (class 1 below it), the P smallest
+    active |alpha| as fixed partners (a stable sort), random kernel rows.
+    ``ties``: every pair's best candidates are two slots of equal alpha and
+    kappa; ``removal``: class 0's cheapest SV is its only positive one, so
+    its first pair falls back to removal."""
+    alpha = (torch.randn(c, s, generator=gen).abs() * 0.2 + 0.01)
+    alpha = alpha * torch.where(torch.rand(c, s, generator=gen) < 0.4, -1.0, 1.0)
+    kappa = torch.rand(c, p, s, generator=gen)
+    count = torch.randint(budget + 1, s + 1, (c,), generator=gen).to(torch.int32)
+    count[1] = budget - 2
+    if case == "ties":
+        alpha, kappa = alpha.abs() + 0.3, kappa * 0.9
+        alpha[:, :p] = 0.01 * torch.arange(1, p + 1)
+        alpha[:, [20, 30]], kappa[:, :, [20, 30]] = 0.05, 0.999
+    if case == "removal":
+        alpha[0] = -alpha[0].abs()
+        alpha[0, 1] = 0.001
+    idx = torch.arange(s)
+    alpha = torch.where(idx < count[:, None], alpha, 0.0)
+    a_idx = torch.sort(torch.where(idx < count[:, None], alpha.abs(), torch.inf), dim=1,
+                       stable=True).indices[:, :p]
+    a_min = alpha.gather(1, a_idx)
+    return [t.to(dev).contiguous() for t in (alpha, kappa, a_idx, a_min, count)] + [budget]
+
+
+def _choose_bound(alpha, kappa, a_idx, a_min, count, budget, tab):
+    """Least time of one multi_merge_choose call on these inputs: every input
+    once, the WD-table cells the valid pairs read, four h-table cells a pair,
+    the outputs; ~25 operations a valid (pair, candidate), 4 a (pair,
+    candidate) (mask and the greedy argmins)."""
+    from repro_torch.kernels import ref
+    c, p, s = kappa.shape
+    idx = torch.arange(s, device=alpha.device)
+    valid = ((idx < count[:, None])[:, None, :] & (a_min[:, :, None] * alpha[:, None, :] > 0)
+             & (idx[None, None, :] != a_idx[:, :, None]))
+    m, k = ref.merge_coords(a_min[:, :, None], alpha[:, None, :], kappa)
+    cells = _table_cells(tab.wd_table, m[valid], k[valid])
+    n_bytes = (4 * c * s + 4 * c * p * s + c * p * (8 + 4) + 4 * c + 4 * cells + 16 * c * p
+               + c * p * (8 + 1 + 1 + 4))
+    return bound_ms(n_bytes, 25.0 * int(valid.sum()) + 4.0 * c * p * s) + (cells,)
+
+
+def phase_choose(ops, ref, tab, gen):
+    """multi_merge_choose against its plain version on the card, bit for bit:
+    run (b)'s shape (C = 10, P = 4, s = 508), a ragged shape, P = 1 and P = 8,
+    exact score ties and a removal fallback, each with a class below the
+    budget (which executes nothing); then its timing at run (b)'s shape."""
+    s_mc = MC_BUDGET + MC_BATCH
+    record = None
+    for label, c, p, s, budget, case in [
+            ("run (b)", MC_CLASSES, 4, s_mc, MC_BUDGET, "random"),
+            ("ragged", 3, 4, 37, 30, "random"), ("P=1", 2, 1, 129, 120, "random"),
+            ("P=8", 4, 8, 200, 190, "random"), ("ties", 3, 4, 64, 56, "ties"),
+            ("removal", 3, 4, 64, 56, "removal")]:
+        args = _choose_state(gen, c, p, s, budget, "cuda", case)
+        got = ops.multi_merge_choose(*args, tab, impl="cuda")
+        want = ops.multi_merge_choose(*args, tab, impl="ref")
+        equal = all(g.dtype == w.dtype and bool(torch.equal(g, w)) for g, w in zip(got, want))
+        b_idx, merged, execute, h_star = got
+        below = not bool(execute[1].any())
+        line = (f"multi_merge_choose {label} C={c} P={p} s={s}: bit-equal {equal} (b_idx, "
+                f"merged, execute, h_star) pairs executed {int(execute.sum())} merged "
+                f"{int(merged.sum())}; class below budget executes nothing {below}")
+        check(below, f"multi_merge_choose {label}: a class below its budget executed")
+        if case == "ties":
+            over = args[4] > budget
+            ok = bool((b_idx[over, 0] == 20).all() and (b_idx[over, 1] == 30).all())
+            line += f"; ties to the lower slot, then the next {ok}"
+            check(ok, "multi_merge_choose: an exact tie not broken to the lower slot")
+        if case == "removal":
+            ok = bool(execute[0, 0]) and not bool(merged[0, 0])
+            line += f"; class 0's first pair falls back to removal {ok}"
+            check(ok, "multi_merge_choose: the removal fallback did not occur")
+        if label == "run (b)":
+            k_ms = time_call(lambda: ops.multi_merge_choose(*args, tab, impl="cuda"))
+            p_ms = time_call(lambda: ops.multi_merge_choose(*args, tab, impl="ref"), calls=20,
+                             repeats=3)
+            dm = device_ms(lambda: ops.multi_merge_choose(*args, tab, impl="cuda"),
+                           "multi_merge_choose_kernel")
+            b_ms, b_by, cells = _choose_bound(*args, tab)
+            line += (f" kernel {k_ms * 1e3:.2f} us (device {us(dm)}) plain {p_ms * 1e3:.2f} us "
+                     f"bound {b_ms * 1e3:.4f} us ({b_by}, {cells} table cells); library call: none")
+            record = dict(max_abs_err=(h_star - want[3]).abs().max().item(), ms=k_ms,
+                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                          device_ms=dm)
+        print(line)
+        check(equal, f"multi_merge_choose {label} against its plain version")
+    return record
 
 
 def _time_event(ops, tab, st, rounds: int = 50, repeats: int = 7):
@@ -647,8 +974,8 @@ def phase_class_run(mc, ops, kernel_cache, data, run: str):
     dev = torch.device("cuda")
     cfg = _mc_config(mc, run)
     steps = MC_STEPS[run] or MC_TRAIN // MC_BATCH
-    if steps < MC_TRAIN // MC_BATCH:
-        print(f"CUT: run ({run}) trains {steps} of the epoch's {MC_TRAIN // MC_BATCH} steps")
+    cut = "" if steps == MC_TRAIN // MC_BATCH else " (cut)"
+    print(f"CUT: run ({run}) trains {steps} of the epoch's {MC_TRAIN // MC_BATCH} steps{cut}")
     table = cfg.table().to(dev)
     st = mc.init_multiclass_state(cfg, MC_DIM, device=dev)
     x, y = torch.as_tensor(xtr, device=dev), torch.as_tensor(ytr, device=dev)
@@ -665,7 +992,7 @@ def phase_class_run(mc, ops, kernel_cache, data, run: str):
                count=st.count.tolist(), n_merges=st.n_merges.tolist(),
                n_inserts=st.n_inserts.tolist(), launches=launches)
     print(f"class-axis run ({run}) {MC_RUNS[run]}: {json.dumps(res)}")
-    kernel = {"a": "merge_event", "b": "multi_merge_scores"}.get(run, "train_step")
+    kernel = {"a": "merge_event", "b": "multi_merge_choose"}.get(run, "train_step")
     check(st.sv_x.is_cuda and st.kmat.is_cuda, "the class-axis state lives on the card")
     check(max(res["count"]) <= MC_BUDGET, f"run ({run}): a count above the budget")
     check(min(res["n_merges"]) > 0, f"run ({run}): a class with no merge event")
@@ -673,6 +1000,14 @@ def phase_class_run(mc, ops, kernel_cache, data, run: str):
     if kernel == "train_step":
         check(launches[kernel] == steps, f"run ({run}): train_step launched "
               f"{launches[kernel]} times in {steps} steps")
+    if kernel == "multi_merge_choose":
+        # batch_size masked rounds a step, each one multi_merge_choose launch
+        # and no launch of the scoring kernels
+        check(launches[kernel] == MC_BATCH * steps, f"run ({run}): multi_merge_choose "
+              f"launched {launches[kernel]} times in {steps} steps (expected {MC_BATCH} a step)")
+        check(launches["multi_merge_scores"] == 0 and launches["merge_scores"] == 0,
+              f"run ({run}): multi_merge_scores or merge_scores launched; the path now runs "
+              "multi_merge_choose")
     check(launches["rbf_matrix"] > 0, f"run ({run}): rbf_matrix never launched")
     check(acc >= 0.80, f"run ({run}): accuracy {acc} below the 0.80 sanity floor")
     if run != "b":
@@ -1108,6 +1443,59 @@ def phase_fused_profile(core, mc, runs, binary, data, mc_data):
              steps_per_call=chunk)
 
 
+def phase_choose_lockstep(mc, budget_mod, data, run_b):
+    """Run (b)'s configuration for CHOOSE_LOCKSTEP_STEPS more steps, from the
+    state where run (b) stopped (each class is at its budget there, so every
+    round has events; from a fresh state the budget of 500 fills only after
+    ~450 steps): the rest of its epoch's rows, then a second epoch's.  At every maintenance round
+    ``budget._multi_merge_once`` runs twice on the same state: as the path
+    runs it (the multi_merge_choose kernel) and, from a clone, with
+    ``impl="ref"`` (the plain scoring and greedy choice).  The two results
+    must be equal bit for bit: count, sv_x, alpha and kmat."""
+    (xtr, ytr), _ = data
+    dev = torch.device("cuda")
+    res, st, cfg = run_b
+    st = st._replace(**{f: getattr(st, f).clone() for f in st._fields
+                        if getattr(st, f) is not None})
+    table = cfg.table().to(dev)
+    # the rows after run (b)'s last step: the rest of its epoch, then the
+    # start of a second epoch in another order
+    rows = torch.cat([_mc_order(MC_TRAIN // MC_BATCH),
+                      torch.randperm(MC_TRAIN, generator=torch.Generator().manual_seed(SEED + 1))])
+    order = rows[res["steps"] * MC_BATCH:(res["steps"] + CHOOSE_LOCKSTEP_STEPS) * MC_BATCH]
+    x, y = torch.as_tensor(xtr, device=dev), torch.as_tensor(ytr, device=dev)
+    orig = budget_mod._multi_merge_once
+    seen = {"rounds": 0, "events": 0, "differ": []}
+
+    def both(sv_x, alpha, kmat, count, gamma, method, tab, budget, merge_batch, *,
+             impl="auto"):
+        got = orig(sv_x, alpha, kmat, count, gamma, method, tab, budget, merge_batch, impl=impl)
+        want = orig(*(t.clone() for t in (sv_x, alpha, kmat, count)), gamma, method, tab, budget,
+                    merge_batch, impl="ref")
+        seen["rounds"] += 1
+        seen["events"] += int((count > budget).sum())
+        if not all(bool(torch.equal(g, w)) for g, w in zip(got, want)):
+            seen["differ"].append(seen["rounds"])
+        return got
+
+    t0 = time.perf_counter()
+    budget_mod._multi_merge_once = both
+    try:
+        st = mc.train_epoch_multiclass(cfg, table, st, x, y, order, device=dev)
+    finally:
+        budget_mod._multi_merge_once = orig
+    print(f"choose lockstep: steps {res['steps']} to {res['steps'] + CHOOSE_LOCKSTEP_STEPS} of run "
+          f"(b)'s training, {seen['rounds']} maintenance rounds "
+          f"({seen['events']} class events) in {time.perf_counter() - t0:.3f} s; rounds whose "
+          f"kernel and plain results differ: {seen['differ'][:10]} (count, sv_x, alpha, kmat "
+          f"bit for bit); n_merges {st.n_merges.tolist()}")
+    check(seen["rounds"] == MC_BATCH * CHOOSE_LOCKSTEP_STEPS,
+          f"choose lockstep: {seen['rounds']} rounds in {CHOOSE_LOCKSTEP_STEPS} steps")
+    check(seen["events"] > 0, "choose lockstep: no class went over budget")
+    check(not seen["differ"], f"choose lockstep: the kernel and plain rounds part at round "
+          f"{seen['differ'][:1]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -1118,6 +1506,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(src))
     from repro_torch import core
+    from repro_torch.core import budget as budget_mod
     from repro_torch.core import kernel_cache
     from repro_torch.core import multiclass as mc
     from repro_torch.core.lookup import default_table
@@ -1132,7 +1521,7 @@ def main() -> int:
     with Phase("2 build"):
         phase_build(_build)
     with Phase("3 kernels vs plain"):
-        records = phase_kernels(ops, ref, default_table())
+        records = phase_kernels(ops, ref, _build, default_table())
     with Phase("7 class-axis kernels vs plain"):
         records.update(phase_class_kernels(ops, ref, default_table()))
     with Phase("11 train_step kernel vs plain"):
@@ -1166,17 +1555,26 @@ def main() -> int:
         phase_lockstep(mc, kernel_cache, ref, mc_data)
     with Phase("13 fused step profile"):
         phase_fused_profile(core, mc, fused_runs, binary_fused, data, mc_data)
+    with Phase("14 multi_merge_choose lockstep"):
+        phase_choose_lockstep(mc, budget_mod, mc_data, mc_runs["b"])
 
+    # launches on the main paths: the binary runs of phase 4 (rbf_matrix,
+    # merge_pick, gss, and merge_scores, now 0) and the class-axis runs
     counts["merge_event"] = mc_runs["a"][0]["launches"]["merge_event"]
-    counts["multi_merge_scores"] = mc_runs["b"][0]["launches"]["multi_merge_scores"]
+    for name in ("multi_merge_scores", "multi_merge_choose"):
+        counts[name] = mc_runs["b"][0]["launches"][name]
     counts["train_step"] = (binary_fused[0]["launches"]["train_step"]
                             + sum(r[0]["launches"]["train_step"] for r in fused_runs.values()))
     meta = {
         "rbf_matrix": ("src/repro_torch/csrc/rbf_kernel.cu", "src/repro/kernels/rbf_kernel.py:57"),
         "merge_scores": ("src/repro_torch/csrc/merge_lookup.cu",
                          "src/repro/kernels/merge_lookup.py:65"),
+        "merge_pick": ("src/repro_torch/csrc/merge_lookup.cu",
+                       "src/repro/kernels/merge_lookup.py:65"),
         "gss": ("src/repro_torch/csrc/gss.cu", "src/repro/kernels/gss.py:48"),
         "multi_merge_scores": ("src/repro_torch/csrc/merge_multi.cu",
+                               "src/repro/kernels/merge_multi.py:68"),
+        "multi_merge_choose": ("src/repro_torch/csrc/merge_multi.cu",
                                "src/repro/kernels/merge_multi.py:68"),
         "merge_event": ("src/repro_torch/csrc/merge_event.cu",
                         "src/repro/kernels/merge_event.py:193"),

@@ -18,9 +18,10 @@ host-bound step ~10%); the one-vs-rest engine runs all classes in one pass
 ``method`` says how candidates are scored (paper section 4):
   ``gss`` / ``gss-precise`` — golden section search at eps 1e-2 / 1e-10
   (the CUDA ``gss`` kernel on the card); ``lookup-h`` — the h table, WD
-  exact; ``lookup-wd`` — the WD table, h read at the winner only (both
-  lookups through the CUDA ``merge_scores`` kernel on the card; multi-merge
-  scores both tables at once through ``multi_merge_scores``).
+  exact (the CUDA ``merge_scores`` kernel on the card); ``lookup-wd`` — the
+  WD table, h read at the winner only (an event's whole choice is one CUDA
+  ``merge_pick`` launch on the card, a multi-merge event's scoring and greedy
+  pair choice one ``multi_merge_choose`` launch).
 
 ``strategy`` says what one event does: ``merge`` (paper Alg. 1),
 ``multi-merge`` (the P smallest-|alpha| SVs merge with their best partners
@@ -127,19 +128,19 @@ def _merge_once_binary(sv_x, alpha, count, gamma, method, table, *, kappa_row=No
         kappa_row = kops.rbf_row(sv_x, x_min, gamma, impl=impl)
     kappa_row = kappa_row.to(alpha.dtype)
 
-    # 3. score the same-sign candidates, pick the best
-    valid = active & (alpha * a_min > 0) & (idx != i_min)
-    wd, h = _scores(alpha, kappa_row, a_min, valid, method, table, impl=impl)
-    j_star = torch.argmin(wd).reshape(1)
-    wd_j = wd.index_select(0, j_star)
+    # 3. score the same-sign candidates, pick the best; lookup-wd reads the
+    #    h table at the winner only, in the same pass (one launch on the card)
+    if method == "lookup-wd":
+        j_star, wd_j, h_j = kops.merge_pick(alpha, kappa_row, count, i_min, a_min, table,
+                                            impl=impl)
+    else:
+        valid = active & (alpha * a_min > 0) & (idx != i_min)
+        wd, h = _scores(alpha, kappa_row, a_min, valid, method, table, impl=impl)
+        j_star = torch.argmin(wd).reshape(1)
+        wd_j, h_j = wd.index_select(0, j_star), h.index_select(0, j_star)
     has_partner = wd_j < NO_PARTNER
     a_j = alpha.index_select(0, j_star)
     kappa_j = kappa_row.index_select(0, j_star)
-    if h is None:   # lookup-wd: the h table read at the winner only
-        _, h_j = kops.merge_scores(a_j, kappa_j, torch.ones_like(has_partner), a_min,
-                                   table.h_table, impl=impl)
-    else:
-        h_j = h.index_select(0, j_star)
 
     # 4. merged point and coefficient
     z = merge_math.merge_point(h_j, x_min, sv_x.index_select(0, j_star)[0])
@@ -191,20 +192,18 @@ def _merge_once(sv_x, alpha, kmat, count, gamma, method, table, *, kappa_row=Non
                      else kops.rbf_row(sv_x, x_min, gamma, impl=impl))
     kappa_row = kappa_row.to(alpha.dtype)
 
-    # 3. score the same-sign candidates, pick the best
-    valid = active & (alpha * a_min[:, None] > 0) & (idx != i_min[:, None])
-    wd, h = _scores(alpha, kappa_row, a_min, valid, method, table, impl=impl)
-    j_star = torch.argmin(wd, dim=1)
-    wd_j = wd[ar, j_star]
+    # 3. score the same-sign candidates, pick the best; lookup-wd reads the
+    #    h table at the winner only, in the same pass (one launch on the card)
+    if method == "lookup-wd":
+        j_star, wd_j, h_j = kops.merge_pick(alpha, kappa_row, count, i_min, a_min, table,
+                                            impl=impl)
+    else:
+        valid = active & (alpha * a_min[:, None] > 0) & (idx != i_min[:, None])
+        wd, h = _scores(alpha, kappa_row, a_min, valid, method, table, impl=impl)
+        j_star = torch.argmin(wd, dim=1)
+        wd_j, h_j = wd[ar, j_star], h[ar, j_star]
     has_partner = wd_j < NO_PARTNER
     a_j, kappa_j = alpha[ar, j_star], kappa_row[ar, j_star]
-    if h is None:   # lookup-wd: the h table read at the winner only
-        _, h_j = kops.merge_scores(a_j[:, None], kappa_j[:, None],
-                                   torch.ones_like(has_partner)[:, None], a_min,
-                                   table.h_table, impl=impl)
-        h_j = h_j[:, 0]
-    else:
-        h_j = h[ar, j_star]
 
     # 4. merged point and coefficient; every gather before any write
     z = merge_math.merge_point(h_j[:, None], x_min, sv_x[ar, j_star])
@@ -289,46 +288,26 @@ def _multi_merge_once(sv_x, alpha, kmat, count, gamma, method, table, budget: in
     else:
         kappa_rows = kops.rbf_per_class(sv_x[arc, a_idx], sv_x, gamma, impl=impl)
 
-    # a pair may merge with another pair's fixed slot; only its own is excluded
-    self_mask = idx[None, None, :] == a_idx[:, :, None]
-    valid = active[:, None, :] & (a_min[:, :, None] * alpha[:, None, :] > 0) & ~self_mask
-
-    # 3. score all P x S pairs in one pass
-    if method == "lookup-wd" and table is not None:
-        wd, h = kops.multi_merge_scores(alpha, kappa_rows, valid, a_min, table, impl=impl)
+    # 3.-4. score all P x S pairs, then the greedy disjoint pair choice in
+    #    |alpha| order (the loop is over the P pairs, every class at once):
+    #    executing a pair takes both slots, a pair whose fixed slot was taken
+    #    as an earlier partner is skipped, and none executes once the excess
+    #    is covered.  Lookup-WD runs both in one launch on the card.
+    if method == "lookup-wd":
+        b_idx, merged, execute, h_star = kops.multi_merge_choose(
+            alpha, kappa_rows, a_idx, a_min, count, budget, table, impl=impl)
     else:
+        # a pair may merge with another pair's fixed slot; only its own is excluded
+        self_mask = idx[None, None, :] == a_idx[:, :, None]
+        valid = active[:, None, :] & (a_min[:, :, None] * alpha[:, None, :] > 0) & ~self_mask
         wd, h = _scores(alpha, kappa_rows, a_min, valid, method, table, impl=impl)
-
-    # 4. greedy disjoint pair choice in |alpha| order (the loop is over the P
-    #    pairs, every class at once): executing a pair takes both slots, a
-    #    pair whose fixed slot was taken as an earlier partner is skipped, and
-    #    none executes once the excess is covered
-    excess = count - budget
-    taken = torch.zeros((c, s), dtype=torch.bool, device=dev)
-    consumed = torch.zeros((c, p), dtype=torch.bool, device=dev)
-    n_exec = torch.zeros_like(count)
-    b_list, merged_list, exec_list = [], [], []
-    for q in range(p):
-        wd_q = torch.where(taken, torch.inf, wd[:, q])
-        j_q = torch.argmin(wd_q, dim=1)
-        exec_q = ~consumed[:, q] & (n_exec < excess)
-        merged_q = exec_q & (wd_q[ar, j_q] < NO_PARTNER)
-        b_list.append(j_q)
-        merged_list.append(merged_q)
-        exec_list.append(exec_q)
-        taken = (taken | ((idx == j_q[:, None]) & merged_q[:, None])
-                 | ((idx == a_idx[:, q, None]) & exec_q[:, None]))
-        consumed = consumed | ((a_idx == j_q[:, None]) & merged_q[:, None])
-        n_exec = n_exec + exec_q.to(n_exec.dtype)
-    b_idx = torch.stack(b_list, dim=1)                                     # (C, P)
-    merged = torch.stack(merged_list, dim=1)
-    execute = torch.stack(exec_list, dim=1)
+        b_idx, merged, execute = kref.greedy_pairs(wd, a_idx, count, budget)
+        h_star = h[arc, kref.iota(p, dev), b_idx]
+    n_exec = execute.sum(dim=1, dtype=count.dtype)
 
     # 5. one fused update: z_q overwrites a_q; b_q (or a_q on the removal
     #    fallback) becomes a hole; non-executing pairs write nothing
-    pr = kref.iota(p, dev)
-    h_star = h[arc, pr, b_idx]
-    kap = torch.clamp(kappa_rows[arc, pr, b_idx], 0.0, 1.0)
+    kap = torch.clamp(kappa_rows[arc, kref.iota(p, dev), b_idx], 0.0, 1.0)
     a_z = merge_math.merge_alpha_z(a_min, alpha[arc, b_idx], kap, h_star)
     z = merge_math.merge_point(h_star[..., None], sv_x[arc, a_idx], sv_x[arc, b_idx])
     write_idx = torch.where(merged, a_idx, s)

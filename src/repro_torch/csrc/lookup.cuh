@@ -1,15 +1,30 @@
 // Bilinear lookup in a G0 x G1 table at unit-square coordinates (m, kap), as
 // repro.core.lookup.bilinear_lookup computes it term by term: corner (i0, j0)
 // clipped to G-2 so the edges interpolate inside the last cell, the top and
-// bottom rows mixed along kap, then the two mixed along m.  Shared by
-// merge_multi.cu, merge_event_body.cuh and train_step.cu; every file that
-// includes it is compiled with -fmad=false, so the card rounds as the plain
-// PyTorch version does.
+// bottom rows mixed along kap, then the two mixed along m; and the merge
+// problem's coordinates (kernels.ref.merge_coords).  Shared by every scoring
+// kernel (merge_lookup.cu, merge_multi.cu, merge_event_body.cuh,
+// train_step.cu); every file that includes it is compiled with -fmad=false,
+// so the card rounds as the plain PyTorch version does.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace {
+
+// The score of a candidate that may not merge (the plain versions use +inf);
+// any score at or above NO_PARTNER means "no partner" (kernels.ref.NO_PARTNER).
+constexpr float WD_INVALID = 3.4e38f;
+constexpr float NO_PARTNER = 1e30f;
+
+__device__ __forceinline__ float clip01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
+
+// m = a_min / (a_min + alpha) clipped to [0, 1], a zero denominator read as 1
+// (kernels.ref.merge_coords).
+__device__ __forceinline__ float merge_m(float a_min, float alpha) {
+  const float denom = a_min + alpha;
+  return clip01(a_min / (denom == 0.0f ? 1.0f : denom));
+}
 
 // Corner offset and weights of the lookup at (m, kap), both in [0, 1].
 __device__ __forceinline__ void lookup_coords(float m, float kap, int g0, int g1, int* off,

@@ -31,11 +31,10 @@
 #include <cmath>
 
 #include "lookup.cuh"
+#include "block_argmin.cuh"
 
 namespace {
 
-constexpr float WD_INVALID = 3.4e38f;
-constexpr float NO_PARTNER = 1e30f;
 constexpr float KAPPA_MIN = 1e-30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -46,49 +45,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ float clip01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
 __device__ __forceinline__ float safe_log(float k) {
   return logf(fminf(fmaxf(k, KAPPA_MIN), 1.0f));
-}
-
-// m = a_min / (a_min + alpha) clipped to [0, 1], a zero denominator read as 1
-// (kernels.ref.merge_coords).
-__device__ __forceinline__ float merge_m(float a_min, float alpha) {
-  const float denom = a_min + alpha;
-  return clip01(a_min / (denom == 0.0f ? 1.0f : denom));
-}
-
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v < bv || (v == bv && i < bi);
-}
-
-// Block-wide argmin with first-occurrence ties (jnp.argmin's and torch.argmin's
-// rule); every thread gets the result.  red_v/red_i hold one entry per warp.
-__device__ void block_argmin(float v, int i, float* red_v, int* red_i, float* out_v,
-                             int* out_i) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    if (better(ov, oi, v, i)) { v = ov; i = oi; }
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) { red_v[warp] = v; red_i[warp] = i; }
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = blockDim.x / 32;
-    v = lane < n_warps ? red_v[lane] : INFINITY;
-    i = lane < n_warps ? red_i[lane] : INT_MAX;
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, v, off);
-      const int oi = __shfl_down_sync(0xffffffffu, i, off);
-      if (better(ov, oi, v, i)) { v = ov; i = oi; }
-    }
-    if (lane == 0) { red_v[0] = v; red_i[0] = i; }
-  }
-  __syncthreads();
-  *out_v = red_v[0];
-  *out_i = red_i[0];
-  __syncthreads();   // red_v/red_i may be reused right away
 }
 
 // rows: 3 * s floats of shared memory (the three cache rows the event reads,

@@ -1,4 +1,5 @@
-// Multi-merge candidate scoring: both Lookup tables for R fixed-partner rows at once.
+// Multi-merge candidate scoring: both Lookup tables for R fixed-partner rows at
+// once, and the whole score-and-choose step of a multi-merge event.
 //
 // Replaces the TPU kernel src/repro/kernels/merge_multi.py::multi_merge_scores_pallas
 // (body _multi_merge_kernel).  Row r is one fixed partner with coefficient
@@ -21,16 +22,27 @@
 // serve both tables.  The TPU kernel's hat-basis matmul and its padding of
 // the row axis to 8 are TPU idioms and are not carried over.
 //
+// multi_merge_choose_kernel is the score-and-choose entry: one block of 256
+// threads per class builds the validity mask itself, scores its P x s pairs
+// into shared memory (P * s * 4 bytes: 8 KB at the class axis's P = 4,
+// s = 508), runs the greedy disjoint pair choice with first-occurrence block
+// argmins and the bookkeeping on one thread (multi_merge_choice.cuh, the code
+// of the fused train step's multi-merge rounds), and reads the h table at
+// each pair's winner only.  On a training step the host, not the card, is
+// the bound: this replaces about 94 small launches of a masked multi-merge
+// round (the mask, the scoring, and ~20 one-element ops per pair of the
+// greedy loop) with one.
+//
 // The arithmetic follows repro.core.lookup.bilinear_lookup term by term
 // (lookup.cuh, shared with the fused train step), and the file is compiled
 // with -fmad=false, so wd and h equal the plain PyTorch version's bit for bit.
 #include <cuda_runtime.h>
 
 #include "lookup.cuh"
+#include "multi_merge_choice.cuh"
 
 namespace {
 
-constexpr float WD_INVALID = 3.4e38f;
 constexpr int THREADS = 256;
 
 __global__ void multi_merge_scores_kernel(const float* __restrict__ alpha, int rows_per_alpha,
@@ -48,17 +60,56 @@ __global__ void multi_merge_scores_kernel(const float* __restrict__ alpha, int r
   const float a = __ldg(a_min + r);
   const float al = __ldg(alpha + (size_t)(r / rows_per_alpha) * s + j);
   const float denom = a + al;
-  const float m = fminf(fmaxf(a / (denom == 0.0f ? 1.0f : denom), 0.0f), 1.0f);
-  const float kap = fminf(fmaxf(__ldg(kappa + i), 0.0f), 1.0f);
 
   int off;
   float du, dv;
-  lookup_coords(m, kap, g0, g1, &off, &du, &dv);
+  lookup_coords(merge_m(a, al), clip01(__ldg(kappa + i)), g0, g1, &off, &du, &dv);
   const float interp_wd = corner_mix(wd_table, off, g1, du, dv);
   const float interp_h = corner_mix(h_table, off, g1, du, dv);
 
   wd_out[i] = valid[i] ? denom * denom * interp_wd : WD_INVALID;
   h_out[i] = interp_h;
+}
+
+// One block per class c: alpha (C, s), kappa (C, p, s) the fixed partners'
+// cache rows, a_idx/a_min (C, p) the fixed partners (the p smallest active
+// |alpha|, cheapest first), count (C,).  Writes the greedy choice (b_idx,
+// merged, executed) and h at each pair's winner, (C, p) each.  Dynamic
+// shared memory: the (p, s) scores.
+__global__ void __launch_bounds__(THREADS) multi_merge_choose_kernel(
+    const float* __restrict__ alpha, const float* __restrict__ kappa,
+    const long long* __restrict__ a_idx, const float* __restrict__ a_min,
+    const int* __restrict__ count, int budget, const float* __restrict__ h_table,
+    const float* __restrict__ wd_table, int g0, int g1, int p, int s,
+    long long* __restrict__ b_out, bool* __restrict__ merged_out,
+    bool* __restrict__ exec_out, float* __restrict__ h_out) {
+  extern __shared__ float wd[];
+  __shared__ PairChoice ch;
+  __shared__ float red_v[32];
+  __shared__ int red_i[32];
+  const int c = blockIdx.x;
+  const float* al = alpha + (size_t)c * s;
+  const float* kap = kappa + (size_t)c * p * s;
+  for (int k = threadIdx.x; k < p; k += blockDim.x) {
+    ch.a[k] = (int)a_idx[(size_t)c * p + k];
+    ch.a_min[k] = a_min[(size_t)c * p + k];
+  }
+  __syncthreads();
+  const int cnt = count[c];
+  score_pairs(kap, al, cnt, p, s, ch, wd_table, g0, g1, wd);
+  greedy_choice(wd, p, s, cnt - budget, ch, red_v, red_i);
+  for (int k = threadIdx.x; k < p; k += blockDim.x) {
+    const int bk = ch.b[k];
+    int off;
+    float du, dv;
+    lookup_coords(merge_m(ch.a_min[k], al[bk]), clip01(kap[(size_t)k * s + bk]), g0, g1, &off,
+                  &du, &dv);
+    const size_t o = (size_t)c * p + k;
+    b_out[o] = bk;
+    merged_out[o] = ch.merged[k];
+    exec_out[o] = ch.executed[k];
+    h_out[o] = corner_mix(h_table, off, g1, du, dv);
+  }
 }
 
 }  // namespace
@@ -78,5 +129,34 @@ extern "C" int multi_merge_scores_launch(const void* alpha, int rows_per_alpha,
       static_cast<const unsigned char*>(valid), static_cast<const float*>(a_min),
       static_cast<const float*>(h_table), static_cast<const float*>(wd_table), g0, g1, rows, s,
       static_cast<float*>(wd_out), static_cast<float*>(h_out));
+  return (int)cudaGetLastError();
+}
+
+// alpha: (c, s) fp32; kappa: (c, p, s) fp32; a_idx: (c, p) int64; a_min:
+// (c, p) fp32; count: (c,) int32; h_table, wd_table: (g0, g1) fp32.  Writes
+// b_out (c, p) int64, merged_out and exec_out (c, p) bool, h_out (c, p)
+// fp32.  Returns cudaGetLastError(), or the error of raising the kernel's
+// shared-memory limit (p * s * 4 bytes above 48 KB; more than the card
+// offers fails there).
+extern "C" int multi_merge_choose_launch(const void* alpha, const void* kappa,
+                                         const void* a_idx, const void* a_min,
+                                         const void* count, int budget, const void* h_table,
+                                         const void* wd_table, int g0, int g1, int c, int p,
+                                         int s, void* b_out, void* merged_out, void* exec_out,
+                                         void* h_out, void* stream) {
+  if (p < 1 || p > MAX_P) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)p * s * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        multi_merge_choose_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  multi_merge_choose_kernel<<<c, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(alpha), static_cast<const float*>(kappa),
+      static_cast<const long long*>(a_idx), static_cast<const float*>(a_min),
+      static_cast<const int*>(count), budget, static_cast<const float*>(h_table),
+      static_cast<const float*>(wd_table), g0, g1, p, s, static_cast<long long*>(b_out),
+      static_cast<bool*>(merged_out), static_cast<bool*>(exec_out),
+      static_cast<float*>(h_out));
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,93 @@
+// The scoring and greedy disjoint pair choice of one multi-merge event, run
+// by one thread block on one class: steps 3 and 4 of
+// core.budget._multi_merge_once (plain version kernels.ref.multi_merge_choose).
+// Shared by train_step.cu's multi-merge rounds and merge_multi.cu's
+// multi_merge_choose_kernel, so the fused step and the composed engine choose
+// with the same code.  Files that include this are compiled with
+// -fmad=false, so the scores round as the plain version's do.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cmath>
+
+#include "block_argmin.cuh"
+#include "lookup.cuh"
+
+namespace {
+
+constexpr int MAX_P = 32;   // largest merge_batch (the pair lists are static)
+
+// One event's fixed partners and choice, in shared memory.  The caller fills
+// a[k] (the slot of the k-th smallest active |alpha|) and a_min[k] (its alpha).
+struct PairChoice {
+  int a[MAX_P], b[MAX_P], taken[2 * MAX_P];
+  float a_min[MAX_P];
+  bool merged[MAX_P], executed[MAX_P], consumed[MAX_P];
+  int n_taken, n_exec;
+};
+
+// 3. The Lookup-WD score of each fixed partner k against every slot q into
+// wd[k * s + q]: +inf unless q is active (q < cnt), of the partner's sign and
+// not the partner's own slot.  kap_rows[k * s + q] = k(x_{a_k}, x_q); al: the
+// class's alpha (s,).
+__device__ void score_pairs(const float* kap_rows, const float* al, int cnt, int p, int s,
+                            const PairChoice& ch, const float* __restrict__ wd_table, int g0,
+                            int g1, float* wd) {
+  for (int e = threadIdx.x; e < p * s; e += blockDim.x) {
+    const int k = e / s, q = e % s;
+    const float a_min = ch.a_min[k], aq = al[q];
+    const float denom = a_min + aq;
+    int off;
+    float du, dv;
+    lookup_coords(merge_m(a_min, aq), clip01(kap_rows[e]), g0, g1, &off, &du, &dv);
+    const bool valid = q < cnt && a_min * aq > 0.0f && q != ch.a[k];
+    wd[e] = valid ? denom * denom * corner_mix(wd_table, off, g1, du, dv) : INFINITY;
+  }
+}
+
+// 4. Greedy disjoint choice in |alpha| order over the scores wd (p, s): pair k
+// executes unless its fixed slot was taken as an earlier partner or the
+// excess (count - budget) is covered, and merges with its best untaken
+// candidate (first on ties), or falls back to removal when none scores below
+// NO_PARTNER.  Every thread calls it; on return ch.b, merged, executed and
+// n_exec hold the choice.  red_v/red_i: 32 entries each.
+__device__ void greedy_choice(const float* wd, int p, int s, int excess, PairChoice& ch,
+                              float* red_v, int* red_i) {
+  if (threadIdx.x == 0) {
+    ch.n_taken = 0;
+    ch.n_exec = 0;
+    for (int k = 0; k < p; ++k) ch.consumed[k] = false;
+  }
+  __syncthreads();
+  for (int k = 0; k < p; ++k) {
+    const int n_taken = ch.n_taken;
+    float bv = INFINITY;
+    int bi = INT_MAX;
+    for (int q = threadIdx.x; q < s; q += blockDim.x) {
+      bool taken = false;
+      for (int r = 0; r < n_taken; ++r) taken |= ch.taken[r] == q;
+      const float v = taken ? INFINITY : wd[k * s + q];
+      if (better(v, q, bv, bi)) { bv = v; bi = q; }
+    }
+    float mn;
+    int j;
+    block_argmin(bv, bi, red_v, red_i, &mn, &j);
+    if (threadIdx.x == 0) {
+      const bool ex = !ch.consumed[k] && ch.n_exec < excess;
+      const bool mg = ex && mn < NO_PARTNER;
+      ch.b[k] = j;
+      ch.merged[k] = mg;
+      ch.executed[k] = ex;
+      if (mg) ch.taken[ch.n_taken++] = j;
+      if (ex) ch.taken[ch.n_taken++] = ch.a[k];
+      if (mg)
+        for (int r = k + 1; r < p; ++r) ch.consumed[r] |= ch.a[r] == j;
+      ch.n_exec += ex ? 1 : 0;
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace

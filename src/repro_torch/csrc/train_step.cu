@@ -49,20 +49,20 @@
 #include <cuda_runtime.h>
 
 #include "merge_event_body.cuh"
+#include "multi_merge_choice.cuh"
 #include "rbf_epilogue.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_P = 32;      // largest merge_batch (the pair scratch is static)
 constexpr int ROW_CHUNK = 8;   // batch rows whose dot products a lane keeps at once
 
-// The multi-merge event's per-pair scalars and lists, in shared memory.
-struct PairScratch {
-  int a[MAX_P], b[MAX_P], dst[MAX_P], src[MAX_P], taken[2 * MAX_P];
-  float a_min[MAX_P], h[MAX_P], a_z[MAX_P], lk_ab[MAX_P];
-  bool merged[MAX_P], executed[MAX_P], consumed[MAX_P];
-  int n_taken, n_exec, n_mv;
+// The multi-merge event's per-pair scalars and lists, in shared memory: the
+// choice (multi_merge_choice.cuh) and what the update needs after it.
+struct PairScratch : PairChoice {
+  int dst[MAX_P], src[MAX_P];
+  float h[MAX_P], a_z[MAX_P], lk_ab[MAX_P];
+  int n_mv;
 };
 
 // One multi-merge event on a class that is over budget: the restatement of
@@ -100,57 +100,12 @@ __device__ int multi_merge_body(TS* sv, float* al, float* km, int cnt, int budge
     __syncthreads();
   }
 
-  // 2. the kappa rows from the cache; 3. every candidate's Lookup-WD score
+  // 2. the kappa rows from the cache; 3. every candidate's Lookup-WD score;
+  // 4. the greedy disjoint choice (multi_merge_choice.cuh)
   for (int e = tid; e < p * s; e += nt) rows_a[e] = km[(size_t)sc.a[e / s] * s + e % s];
   __syncthreads();
-  for (int e = tid; e < p * s; e += nt) {
-    const int k = e / s, q = e % s;
-    const float a_min = sc.a_min[k], aq = al[q];
-    const float denom = a_min + aq;
-    int off;
-    float du, dv;
-    lookup_coords(merge_m(a_min, aq), clip01(rows_a[e]), g0, g1, &off, &du, &dv);
-    const bool valid = q < cnt && a_min * aq > 0.0f && q != sc.a[k];
-    wd[e] = valid ? denom * denom * corner_mix(wd_table, off, g1, du, dv) : INFINITY;
-  }
-  if (tid == 0) {
-    sc.n_taken = 0;
-    sc.n_exec = 0;
-    for (int k = 0; k < p; ++k) sc.consumed[k] = false;
-  }
-  __syncthreads();
-
-  // 4. greedy disjoint choice in |alpha| order: a pair executes unless its
-  //    fixed slot was taken as an earlier partner or the excess is covered;
-  //    it merges with its best untaken candidate, or falls back to removal
-  const int excess = cnt - budget;
-  for (int k = 0; k < p; ++k) {
-    const int n_taken = sc.n_taken;
-    float bv = INFINITY;
-    int bi = INT_MAX;
-    for (int q = tid; q < s; q += nt) {
-      bool taken = false;
-      for (int r = 0; r < n_taken; ++r) taken |= sc.taken[r] == q;
-      const float v = taken ? INFINITY : wd[k * s + q];
-      if (better(v, q, bv, bi)) { bv = v; bi = q; }
-    }
-    float mn;
-    int j;
-    block_argmin(bv, bi, red_v, red_i, &mn, &j);
-    if (tid == 0) {
-      const bool ex = !sc.consumed[k] && sc.n_exec < excess;
-      const bool mg = ex && mn < NO_PARTNER;
-      sc.b[k] = j;
-      sc.merged[k] = mg;
-      sc.executed[k] = ex;
-      if (mg) sc.taken[sc.n_taken++] = j;
-      if (ex) sc.taken[sc.n_taken++] = sc.a[k];
-      if (mg)
-        for (int r = k + 1; r < p; ++r) sc.consumed[r] |= sc.a[r] == j;
-      sc.n_exec += ex ? 1 : 0;
-    }
-    __syncthreads();
-  }
+  score_pairs(rows_a, al, cnt, p, s, sc, wd_table, g0, g1, wd);
+  greedy_choice(wd, p, s, cnt - budget, sc, red_v, red_i);
 
   // 5. per pair: h from the h table at the winner, a_z, log k(a, b)
   for (int k = tid; k < p; k += nt) {

@@ -7,7 +7,8 @@ The digest covers the source, the shared headers (``csrc/*.cuh``) and the
 flags, so an edited source or header rebuilds and a stale library is never
 loaded.  ``build()`` starts one ``nvcc`` per source,
 all at once, and waits for every one of them; ``load()`` builds what is
-missing and opens it with ``ctypes``.
+missing and opens it with ``ctypes``; ``function()`` binds one C entry point
+once, with its argument types, for the launch wrappers' per-call path.
 
 Nothing here runs at import: the CPU-only test environment imports every
 module and has no ``nvcc``.
@@ -20,6 +21,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -37,7 +40,14 @@ SOURCES = {
     "train_step": ("-fmad=false",),
 }
 
+# shared memory one thread block may use on Hopper (227 KB), and the largest
+# multi-merge batch the kernels keep static lists for (csrc
+# multi_merge_choice.cuh MAX_P)
+SMEM_LIMIT = 232_448
+MAX_MERGE_BATCH = 32
+
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -102,6 +112,35 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def function(name: str, symbol: str, argtypes: str, restype=ctypes.c_int):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu`` with its arguments
+    declared (``argtypes``: one letter each, ``p`` a pointer or stream, ``i``
+    an int, ``f`` a float) and its result (an int status unless
+    ``restype`` says otherwise); bound once, so a launch pays one dictionary
+    lookup for it."""
+    fn = _FNS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+        fn.argtypes = [kinds[a] for a in argtypes]
+        fn.restype = restype
+        _FNS[(name, symbol)] = fn
+    return fn
+
+
+def dense(t):
+    """``t`` itself when contiguous, else a contiguous copy (the kernels read
+    dense row-major buffers)."""
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def stream(device_index: int) -> int:
+    """PyTorch's current stream on the card ``device_index`` as a raw
+    ``cudaStream_t``, without building a ``torch.cuda.Stream`` (``chip_smoke.py``
+    holds it equal to ``torch.cuda.current_stream(dev).cuda_stream``)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def check(status: int, what: str) -> None:

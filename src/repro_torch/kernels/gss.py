@@ -6,23 +6,11 @@ Replaces ``repro.kernels.gss.gss_pallas`` on the H100: one thread per
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _build
 
 launches = 0
-
-
-def _lib():
-    lib = _build.load("gss")
-    fn = lib.gss_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, p]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def gss_cuda(m: torch.Tensor, kappa: torch.Tensor, n_iters: int) -> torch.Tensor:
@@ -40,8 +28,9 @@ def gss_cuda(m: torch.Tensor, kappa: torch.Tensor, n_iters: int) -> torch.Tensor
     h = torch.empty_like(m)
     if m.numel() == 0:
         return h
-    status = _lib()(m.data_ptr(), kappa.data_ptr(), h.data_ptr(), m.numel(), int(n_iters),
-                    torch.cuda.current_stream(m.device).cuda_stream)
+    status = _build.function("gss", "gss_launch", "pppiip")(
+        m.data_ptr(), kappa.data_ptr(), h.data_ptr(), m.numel(), int(n_iters),
+        _build.stream(m.get_device()))
     _build.check(status, "gss")
     launches += 1
     return h

@@ -9,24 +9,12 @@ outputs to its inputs.  Classes with ``over`` clear are not touched.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _build
 
 launches = 0
 _SV_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def _lib():
-    lib = _build.load("merge_event")
-    fn = lib.merge_event_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i, p, p]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def merge_event_cuda(sv_x, alpha, kmat, count, over, h_table, wd_table, decisions=None):
@@ -68,11 +56,11 @@ def merge_event_cuda(sv_x, alpha, kmat, count, over, h_table, wd_table, decision
     h_table, wd_table = h_table.contiguous(), wd_table.contiguous()
     if c == 0 or s == 0:
         return sv_x, alpha, kmat
-    status = _lib()(sv_x.data_ptr(), int(sv_x.dtype == torch.bfloat16), alpha.data_ptr(),
-                    kmat.data_ptr(), count.data_ptr(), over.data_ptr(), h_table.data_ptr(),
-                    wd_table.data_ptr(), g0, g1, c, s, d,
-                    None if decisions is None else decisions.data_ptr(),
-                    torch.cuda.current_stream(dev).cuda_stream)
+    status = _build.function("merge_event", "merge_event_launch", "pippppppiiiiipp")(
+        sv_x.data_ptr(), int(sv_x.dtype == torch.bfloat16), alpha.data_ptr(), kmat.data_ptr(),
+        count.data_ptr(), over.data_ptr(), h_table.data_ptr(), wd_table.data_ptr(), g0, g1, c,
+        s, d, None if decisions is None else decisions.data_ptr(),
+        _build.stream(sv_x.get_device()))
     _build.check(status, "merge_event")
     launches += 1
     return sv_x, alpha, kmat

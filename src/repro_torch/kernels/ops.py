@@ -20,9 +20,13 @@ from . import merge_lookup, merge_multi, rbf_kernel, ref
 from . import train_step as train_step_kernel
 
 IMPLS = ("auto", "cuda", "ref")
-_KERNELS = {"rbf_matrix": rbf_kernel, "merge_scores": merge_lookup, "gss": gss_kernel,
-            "multi_merge_scores": merge_multi, "merge_event": merge_event_kernel,
-            "train_step": train_step_kernel}
+# kernel name -> (wrapper module, its launch counter)
+_KERNELS = {"rbf_matrix": (rbf_kernel, "launches"), "merge_scores": (merge_lookup, "launches"),
+            "merge_pick": (merge_lookup, "pick_launches"), "gss": (gss_kernel, "launches"),
+            "multi_merge_scores": (merge_multi, "launches"),
+            "multi_merge_choose": (merge_multi, "choose_launches"),
+            "merge_event": (merge_event_kernel, "launches"),
+            "train_step": (train_step_kernel, "launches")}
 
 
 def _use_kernel(impl: str, t: torch.Tensor) -> bool:
@@ -34,12 +38,12 @@ def _use_kernel(impl: str, t: torch.Tensor) -> bool:
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    return {name: getattr(mod, counter) for name, (mod, counter) in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNELS.values():
-        mod.launches = 0
+    for mod, counter in _KERNELS.values():
+        setattr(mod, counter, 0)
 
 
 def rbf_matrix(x, y, gamma, *, impl: str = "auto"):
@@ -104,7 +108,6 @@ def merge_scores(alpha, kappa_row, valid, a_min, table, *, impl: str = "auto"):
     ``ref.NO_PARTNER`` at invalid ones (+inf on the plain path, 3.4e38 from
     the kernel)."""
     if _use_kernel(impl, alpha):
-        a_min = a_min if a_min.dim() == 1 else a_min.reshape(-1)
         return merge_lookup.merge_scores_cuda(alpha, kappa_row, valid, a_min, table)
     a = a_min.reshape(-1, 1) if alpha.dim() == 2 else a_min
     wd = ref.merge_scores(alpha, kappa_row, valid, a, table)
@@ -119,6 +122,24 @@ def gss_solve(m, kappa, *, n_iters: int, impl: str = "auto"):
     return ref.gss(m, kappa, n_iters)
 
 
+def merge_pick(alpha, kappa, count, i_min, a_min, table, *, impl: str = "auto"):
+    """The choice of one Lookup-WD merge event per row: ``(j_star, wd_j, h_j)``.
+
+    alpha, kappa: (s,) for a binary state, or rows (R, s); count: the active
+    slots, 0-d int32 or (R,); i_min: (R,) int64 and a_min: (R,), the fixed
+    partner's slot and coefficient; ``table`` a ``MergeLookupTable``.
+    Candidate j is valid when ``j < count``, ``alpha_j * a_min > 0`` and
+    ``j != i_min``; ``j_star`` (R,) is the first-occurrence argmin of the
+    Lookup-WD scores (slot 0 when none is valid), ``wd_j`` its score
+    (``>= ref.NO_PARTNER`` when none is valid: the removal fallback) and
+    ``h_j`` the h table at the winner.  On the card one ``merge_pick``
+    launch; the plain version is ``ref.merge_pick``."""
+    if _use_kernel(impl, alpha):
+        return merge_lookup.merge_pick_cuda(alpha, kappa, count, i_min, a_min, table.wd_table,
+                                            table.h_table)
+    return ref.merge_pick(alpha, kappa, count, i_min, a_min, table.wd_table, table.h_table)
+
+
 def multi_merge_scores(alpha, kappa_rows, valid, a_min, table, *, impl: str = "auto"):
     """``(wd, h)`` for P fixed merge partners at once, both tables in one pass.
 
@@ -128,15 +149,33 @@ def multi_merge_scores(alpha, kappa_rows, valid, a_min, table, *, impl: str = "a
     with class c's alpha shared by its P rows.  ``table`` is a
     ``MergeLookupTable``.  Invalid slots get WD +inf (plain) or 3.4e38
     (kernel), argmin-safe either way."""
-    if not _use_kernel(impl, alpha):
-        fn = ref.multi_merge_scores_classes if kappa_rows.dim() == 3 else ref.multi_merge_scores
-        return fn(alpha, kappa_rows, valid, a_min, table.h_table, table.wd_table)
-    shape = kappa_rows.shape
-    s = shape[-1]
-    wd, h = merge_multi.multi_merge_scores_cuda(
-        alpha.reshape(-1, s), kappa_rows.reshape(-1, s), valid.reshape(-1, s), a_min.reshape(-1),
-        table.h_table, table.wd_table)
-    return wd.view(shape), h.view(shape)
+    if _use_kernel(impl, alpha):
+        return merge_multi.multi_merge_scores_cuda(alpha, kappa_rows, valid, a_min,
+                                                   table.h_table, table.wd_table)
+    fn = ref.multi_merge_scores_classes if kappa_rows.dim() == 3 else ref.multi_merge_scores
+    return fn(alpha, kappa_rows, valid, a_min, table.h_table, table.wd_table)
+
+
+def multi_merge_choose(alpha, kappa_rows, a_idx, a_min, count, budget: int, table, *,
+                       impl: str = "auto"):
+    """Scoring and greedy disjoint pair choice of one multi-merge event per class.
+
+    alpha: (C, s); kappa_rows: (C, P, s), the fixed partners' kernel rows;
+    a_idx: (C, P) int64 and a_min: (C, P), the P smallest active |alpha|
+    (cheapest first) and their coefficients; count: (C,) int32; ``table`` a
+    ``MergeLookupTable``.  Returns ``(b_idx, merged, execute, h_star)``, (C, P)
+    each, as ``core.budget._multi_merge_once`` steps 3-4 define them: in
+    |alpha| order a pair executes unless its slot was taken as an earlier
+    partner or the excess ``count - budget`` is covered, and merges with its
+    best untaken same-sign candidate or falls back to removal; ``h_star`` is
+    the h table at each pair's candidate.  On the card one
+    ``multi_merge_choose`` launch (one block a class); the plain version is
+    ``ref.multi_merge_choose``."""
+    if _use_kernel(impl, alpha):
+        return merge_multi.multi_merge_choose_cuda(alpha, kappa_rows, a_idx, a_min, count,
+                                                   budget, table.h_table, table.wd_table)
+    return ref.multi_merge_choose(alpha, kappa_rows, a_idx, a_min, count, budget,
+                                  table.h_table, table.wd_table)
 
 
 def merge_event(sv_x, alpha, kmat, count, over, table, *, decisions=None, impl: str = "auto"):

@@ -7,24 +7,12 @@ counts the kernel launches made through :func:`rbf_matrix_cuda`.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _build
 
 launches = 0
 _DTYPES = (torch.float32, torch.bfloat16)
-
-
-def _lib():
-    lib = _build.load("rbf_kernel")
-    fn = lib.rbf_matrix_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, i, p, i, i, i, ctypes.c_float, p]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def rbf_matrix_cuda(x: torch.Tensor, y: torch.Tensor, gamma: float) -> torch.Tensor:
@@ -42,10 +30,10 @@ def rbf_matrix_cuda(x: torch.Tensor, y: torch.Tensor, gamma: float) -> torch.Ten
     out = torch.empty((n, m), dtype=torch.float32, device=x.device)
     if n == 0 or m == 0:
         return out
-    fn = _lib()
+    fn = _build.function("rbf_kernel", "rbf_matrix_launch", "pipipiiifp")
     status = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(),
                 int(y.dtype == torch.bfloat16), out.data_ptr(), n, m, d, float(gamma),
-                torch.cuda.current_stream(x.device).cuda_stream)
+                _build.stream(x.get_device()))
     _build.check(status, "rbf_matrix")
     launches += 1
     return out

@@ -107,6 +107,27 @@ def gss(m, kappa, n_iters: int):
     return 0.5 * (a + b)
 
 
+def merge_pick(alpha, kappa, count, i_min, a_min, wd_table, h_table):
+    """The choice of one Lookup-WD merge event per row (the plain version of
+    the ``merge_pick`` kernel): ``core.budget._merge_once``'s step 3, op for op.
+
+    alpha, kappa: (s,) or (R, s); count: 0-d or (R,); i_min, a_min: (R,).
+    Candidate j is valid when ``j < count``, ``alpha_j * a_min > 0`` and
+    ``j != i_min``.  Returns ``(j_star, wd_j, h_j)`` (R,): the first-occurrence
+    argmin of the Lookup-WD scores (+inf where invalid, so slot 0 when none
+    is valid), its score, and the h table at the winner."""
+    s = alpha.shape[-1]
+    alpha, kappa = alpha.reshape(-1, s), kappa.reshape(-1, s)
+    a_col = a_min.reshape(-1, 1)
+    idx = iota(s, alpha.device)
+    valid = (idx < count.reshape(-1, 1)) & (alpha * a_col > 0) & (idx != i_min.reshape(-1, 1))
+    wd = merge_scores(alpha, kappa, valid, a_col, wd_table)
+    j_star = torch.argmin(wd, dim=1)
+    at_j = lambda t: t.gather(1, j_star[:, None])[:, 0]
+    m, kap = merge_coords(a_min.reshape(-1), at_j(alpha), at_j(kappa))
+    return j_star, at_j(wd), bilinear_lookup(h_table, m, kap)
+
+
 def multi_merge_scores_rows(alpha_rows, kappa_rows, valid, a_min, h_table, wd_table):
     """Lookup-WD scoring where every fixed partner brings its own candidate-alpha row.
 
@@ -134,6 +155,59 @@ def multi_merge_scores_classes(alpha, kappa_rows, valid, a_min, h_table, wd_tabl
                                     kappa_rows.reshape(c * p, s), valid.reshape(c * p, s),
                                     a_min.reshape(c * p), h_table, wd_table)
     return wd.reshape(c, p, s), h.reshape(c, p, s)
+
+
+def greedy_pairs(wd, a_idx, count, budget: int):
+    """The greedy disjoint pair choice of a multi-merge event, every class at
+    once (``core.budget._multi_merge_once`` step 4).
+
+    wd: (C, P, s) scores of the P fixed partners (slots ``a_idx`` (C, P), in
+    |alpha| order), ``>= NO_PARTNER`` where a candidate may not merge; count:
+    (C,).  In |alpha| order a pair executes unless its fixed slot was taken as
+    an earlier partner or the excess ``count - budget`` is covered, merges
+    with its best untaken candidate (first on ties) or falls back to removal,
+    and takes both slots.  Returns ``(b_idx, merged, execute)``, (C, P) each."""
+    c, p, s = wd.shape
+    dev = wd.device
+    idx, ar = iota(s, dev), iota(c, dev)
+    excess = count - budget
+    taken = torch.zeros((c, s), dtype=torch.bool, device=dev)
+    consumed = torch.zeros((c, p), dtype=torch.bool, device=dev)
+    n_exec = torch.zeros_like(count)
+    b_list, merged_list, exec_list = [], [], []
+    for q in range(p):
+        wd_q = torch.where(taken, torch.inf, wd[:, q])
+        j_q = torch.argmin(wd_q, dim=1)
+        exec_q = ~consumed[:, q] & (n_exec < excess)
+        merged_q = exec_q & (wd_q[ar, j_q] < NO_PARTNER)
+        b_list.append(j_q)
+        merged_list.append(merged_q)
+        exec_list.append(exec_q)
+        taken = (taken | ((idx == j_q[:, None]) & merged_q[:, None])
+                 | ((idx == a_idx[:, q, None]) & exec_q[:, None]))
+        consumed = consumed | ((a_idx == j_q[:, None]) & merged_q[:, None])
+        n_exec = n_exec + exec_q.to(n_exec.dtype)
+    return torch.stack(b_list, dim=1), torch.stack(merged_list, dim=1), torch.stack(exec_list, dim=1)
+
+
+def multi_merge_choose(alpha, kappa_rows, a_idx, a_min, count, budget: int, h_table, wd_table):
+    """Scoring and greedy pair choice of one multi-merge event per class (the
+    plain version of the ``multi_merge_choose`` kernel): steps 3-4 of
+    ``core.budget._multi_merge_once`` under Lookup-WD, op for op.
+
+    alpha: (C, s); kappa_rows: (C, P, s); a_idx: (C, P) int64; a_min: (C, P);
+    count: (C,).  A pair may merge with another pair's fixed slot; only its
+    own is excluded.  Returns ``(b_idx, merged, execute, h_star)``, (C, P)
+    each, ``h_star`` the h table at each pair's candidate."""
+    c, p, s = kappa_rows.shape
+    idx = iota(s, alpha.device)
+    active = idx < count[:, None]
+    self_mask = idx[None, None, :] == a_idx[:, :, None]
+    valid = active[:, None, :] & (a_min[:, :, None] * alpha[:, None, :] > 0) & ~self_mask
+    wd, h = multi_merge_scores_classes(alpha, kappa_rows, valid, a_min, h_table, wd_table)
+    b_idx, merged, execute = greedy_pairs(wd, a_idx, count, budget)
+    h_star = h[iota(c, alpha.device)[:, None], iota(p, alpha.device), b_idx]
+    return b_idx, merged, execute, h_star
 
 
 def class_scores(x, sv_x, alpha, gamma):
@@ -325,36 +399,14 @@ def multi_merge_event(sv_x, alpha, kmat, count, over, h_table, wd_table, *, budg
     a_idx = torch.sort(abs_a, dim=1, stable=True).indices[:, :p]          # (C, P)
     a_min = alpha[arc, a_idx]
 
-    # 2. kappa rows from the cache; 3. both tables at every candidate
+    # 2. kappa rows from the cache; 3.-4. both tables at every candidate and
+    #    the greedy disjoint pair choice in |alpha| order
     kappa_rows = kmat[arc, a_idx].to(alpha.dtype)
-    valid = (active[:, None, :] & (a_min[:, :, None] * alpha[:, None, :] > 0)
-             & (idx[None, None, :] != a_idx[:, :, None]))
-    wd, h = multi_merge_scores_classes(alpha, kappa_rows, valid, a_min, h_table, wd_table)
-
-    # 4. greedy disjoint pair choice in |alpha| order
-    excess = count - budget
-    taken = torch.zeros((c, s), dtype=torch.bool, device=dev)
-    consumed = torch.zeros((c, p), dtype=torch.bool, device=dev)
-    n_exec = torch.zeros_like(count)
-    b_list, merged_list, exec_list = [], [], []
-    for q in range(p):
-        wd_q = torch.where(taken, torch.inf, wd[:, q])
-        j_q = torch.argmin(wd_q, dim=1)
-        exec_q = ~consumed[:, q] & (n_exec < excess)
-        merged_q = exec_q & (wd_q[ar, j_q] < NO_PARTNER)
-        b_list.append(j_q)
-        merged_list.append(merged_q)
-        exec_list.append(exec_q)
-        taken = (taken | ((idx == j_q[:, None]) & merged_q[:, None])
-                 | ((idx == a_idx[:, q, None]) & exec_q[:, None]))
-        consumed = consumed | ((a_idx == j_q[:, None]) & merged_q[:, None])
-        n_exec = n_exec + exec_q.to(n_exec.dtype)
-    b_idx = torch.stack(b_list, dim=1)
-    merged = torch.stack(merged_list, dim=1)
-    execute = torch.stack(exec_list, dim=1)
+    b_idx, merged, execute, h_star = multi_merge_choose(alpha, kappa_rows, a_idx, a_min, count,
+                                                        budget, h_table, wd_table)
+    n_exec = execute.sum(dim=1, dtype=count.dtype)
 
     # 5. merge math, every gather before any write
-    h_star = h[arc, iota(p, dev), b_idx]
     kap = torch.clamp(kappa_rows[arc, iota(p, dev), b_idx], 0.0, 1.0)
     u = 1.0 - h_star
     a_z = a_min * _kappa_pow(kap, u * u) + alpha[arc, b_idx] * _kappa_pow(kap, h_star * h_star)

@@ -18,26 +18,12 @@ from . import _build
 
 launches = 0
 _SV_DTYPES = (torch.float32, torch.bfloat16)
-_SMEM_LIMIT = 232_448          # shared memory one block may use on Hopper (227 KB)
-_MAX_MERGE_BATCH = 32           # csrc/train_step.cu MAX_P
-
-
-def _lib():
-    lib = _build.load("train_step")
-    fn = lib.train_step_launch
-    if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, f, i, i, p]
-        fn.restype = ctypes.c_int
-        smem = lib.train_step_smem_bytes
-        smem.argtypes = [i, i, i, i, i]
-        smem.restype = ctypes.c_longlong
-    return lib
 
 
 @functools.lru_cache(maxsize=64)
 def _smem_need(s: int, d: int, b: int, multi: bool, p: int) -> int:
-    return _lib().train_step_smem_bytes(s, d, b, int(multi), p)
+    fn = _build.function("train_step", "train_step_smem_bytes", "iiiii", ctypes.c_longlong)
+    return fn(s, d, b, int(multi), p)
 
 
 def train_step_cuda(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb, k_bb,
@@ -80,8 +66,8 @@ def train_step_cuda(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb,
                          "n_merges in place: they must be contiguous")
     multi = maintenance == "multi-merge"
     p = merge_batch if multi else 1
-    if not 1 <= p <= _MAX_MERGE_BATCH:
-        raise ValueError(f"merge_batch={merge_batch} outside [1, {_MAX_MERGE_BATCH}]")
+    if not 1 <= p <= _build.MAX_MERGE_BATCH:
+        raise ValueError(f"merge_batch={merge_batch} outside [1, {_build.MAX_MERGE_BATCH}]")
     g0, g1 = wd_table.shape
     if h_table.shape != wd_table.shape or g0 < 2 or g1 < 2:
         raise ValueError("the two tables must share one shape of at least 2 x 2")
@@ -90,15 +76,15 @@ def train_step_cuda(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb,
     if c == 0 or s == 0 or b == 0:
         return sv_x, alpha, kmat, count, step + 1, n_inserts, n_merges
     need = _smem_need(s, d, b, multi, p)
-    if need < 0 or need > _SMEM_LIMIT:
+    if need < 0 or need > _build.SMEM_LIMIT:
         raise ValueError(f"train_step_cuda needs {need} bytes of shared memory a block for "
-                         f"S={s}, D={d}, B={b} (limit {_SMEM_LIMIT})")
-    status = _lib().train_step_launch(
+                         f"S={s}, D={d}, B={b} (limit {_build.SMEM_LIMIT})")
+    status = _build.function("train_step", "train_step_launch", "pipppppppppppiiiiiiiffiip")(
         sv_x.data_ptr(), int(sv_x.dtype == torch.bfloat16), alpha.data_ptr(), kmat.data_ptr(),
         count.data_ptr(), step.data_ptr(), n_inserts.data_ptr(), n_merges.data_ptr(),
         xb.data_ptr(), yb.data_ptr(), k_bb.data_ptr(), h_table.data_ptr(), wd_table.data_ptr(),
         g0, g1, c, s, d, b, budget, float(lambda_), float(gamma), int(multi), p,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(sv_x.get_device()))
     _build.check(status, "train_step")
     launches += 1
     return sv_x, alpha, kmat, count, step + 1, n_inserts, n_merges

@@ -37,7 +37,10 @@ RTOL, ATOL = 1e-5, 5e-5       # the reference's kernel-vs-oracle tolerance
 EPOCH_ATOL = 5e-5             # no tighter than the reference's own 3.3e-5 drift
 # The class-axis epochs: at C = 4 under multi-merge the port sits 9.0e-5 off
 # the reference in one merged z of 400 entries (alpha 2.6e-5), with its
-# composed engine exactly as far off as its fused one (ROADMAP.md Queue 3).
+# composed engine exactly as far off as its fused one: the last-bit drift of
+# earlier steps moves a merge's m by a few ulps at a cell of the h table
+# where h jumps between its two mirror modes (ROADMAP.md Queue 3,
+# test_multi_merge_epoch_parts_at_a_mirror_mode_cell).
 MC_EPOCH_ATOL = 1e-4
 
 
@@ -187,7 +190,7 @@ def _event_state(seed, c=4, s=24, d=5, budget=17):
     return [torch.tensor(a) for a in (sv, al, km)], torch.tensor(count), budget
 
 
-@pytest.mark.parametrize("merge_batch", [1, 3, 4])
+@pytest.mark.parametrize("merge_batch", [1, 3, 4, 8])
 def test_multi_merge_event_equals_budget_multi_merge_once(merge_batch):
     (sv, al, km), count, budget = _event_state(merge_batch)
     table = torch_default_table()
@@ -239,6 +242,70 @@ def test_fused_epoch_multiclass_matches_reference(maintenance, c):
     assert (ts.n_merges > 0).all() and (ts.count <= 12).all()
     assert_state_parity(js, _as_jax(ts), atol_float=MC_EPOCH_ATOL, atol_cache=MC_EPOCH_ATOL,
                         rtol=RTOL, context=f"{maintenance} C={c}")
+
+
+def test_multi_merge_epoch_parts_at_a_mirror_mode_cell(monkeypatch):
+    """Where the C = 4 multi-merge epoch of
+    ``test_fused_epoch_multiclass_matches_reference`` leaves the reference by
+    more than 1e-5: at each step the port also steps from the reference's own
+    state, so the two port steps differ only by the state they start from.
+    Until the parting step the port's step from the reference's state stays
+    within 5e-7 of the reference's step (last-bit differences: the margin
+    rows' sums and the multiply-adds XLA contracts); at the parting step the
+    two port steps differ by more than 1e-5 in sv_x with the integer state
+    equal, and the pair whose h moves lies in the h table's mirror-mode
+    cell: kappa below e^-2, m within 1e-2 of 1/2, where h jumps between its
+    two maxima (corners 0 and 1), so a change of m by a few ulps moves h,
+    and the merged z, by ~400 times as much."""
+    c = 4
+    x, y, perm = _blobs(c)
+    kw = _mc_kw("multi-merge", "pallas")
+    jcfg, tcfg = (pkg.MulticlassSVMConfig.create(c, **kw) for pkg in (jmc, tmc))
+    jt, tt = jcfg.table(), tcfg.table()
+    js = jmc.init_multiclass_state(jcfg, 5)
+    ts = tmc.init_multiclass_state(tcfg, 5, device=CPU)
+    scored = []
+    plain_scores = ref.multi_merge_scores_classes
+
+    def spy(*args):
+        out = plain_scores(*args)
+        scored.append((args, out[1]))
+        return out
+
+    monkeypatch.setattr(ref, "multi_merge_scores_classes", spy)
+    as_torch = lambda st: tbsgd.SVMState(**{f: None if getattr(st, f) is None else
+                                            torch.tensor(np.asarray(getattr(st, f)))
+                                            for f in st._fields})
+    for i in range(len(x) // 8):
+        xb, yb = x[perm[i * 8:(i + 1) * 8]], y[perm[i * 8:(i + 1) * 8]]
+        scored.clear()
+        from_ref = tmc.train_step_multiclass(tcfg, tt, as_torch(js), torch.tensor(xb),
+                                             torch.tensor(yb).long())
+        rounds_ref = list(scored)
+        scored.clear()
+        ts = tmc.train_step_multiclass(tcfg, tt, ts, torch.tensor(xb), torch.tensor(yb).long())
+        js = jmc.train_step_multiclass(jcfg, jt, js, jnp.asarray(xb), jnp.asarray(yb),
+                                       impl="ref")
+        gap = (from_ref.sv_x - ts.sv_x).abs().max().item()
+        for f in ("count", "n_inserts", "n_merges"):
+            assert torch.equal(getattr(from_ref, f), getattr(ts, f)), (i, f)
+        if gap <= 1e-5:
+            assert np.abs(from_ref.sv_x.numpy() - np.asarray(js.sv_x)).max() <= 5e-7, i
+            continue
+        # the parting step: find the pair whose h moved and where it sits
+        moved = []
+        for (args, h_r), (_, h_p) in zip(rounds_ref, scored):
+            alpha, kappa, _, a_min = args[:4]
+            k, q, j = np.unravel_index(int((h_r - h_p).abs().argmax()), h_r.shape)
+            m = float(a_min[k, q] / (a_min[k, q] + alpha[k, j]))
+            moved.append((float((h_r - h_p).abs().max()), m, float(kappa[k, q, j])))
+        dh, m, kap = max(moved)
+        g = tt.h_table.shape[0] - 1
+        cell = tt.h_table[int(m * g):int(m * g) + 2, int(kap * g)]
+        assert dh > 1e-5 and abs(m - 0.5) < 1e-2 and kap < np.exp(-2.0)
+        assert sorted(cell.tolist()) == [0.0, 1.0]
+        return
+    pytest.fail("the epoch never left the reference by more than 1e-5")
 
 
 @pytest.fixture(scope="module")
