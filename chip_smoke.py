@@ -28,17 +28,22 @@ non-zero exit code:
      (plain versions), with their integer state compared step by step;
   6. a profiled window of training steps: device busy time per step;
   7. the class-axis kernels (``multi_merge_scores``, ``multi_merge_choose``,
-     ``merge_event``) against their plain versions on the card, at the
-     class-axis runs' shapes and at ragged ones, fp32 and bf16 banks, with a
-     forced removal fallback; ``multi_merge_choose`` bit for bit also at
-     P = 1 and P = 8, with exact score ties and a class below its budget;
+     ``merge_event``, ``merge_event_rounds``) against their plain versions on
+     the card, at the class-axis runs' shapes and at ragged ones, fp32 and
+     bf16 banks, with a forced removal fallback; ``multi_merge_choose`` bit
+     for bit also at P = 1 and P = 8, with exact score ties and a class below
+     its budget; ``merge_event_rounds`` bit for bit also against batch-size
+     single-round ``merge_event`` launches; the two event kernels' device
+     time at their fixed cluster size (``merge_event.CLUSTER``) and at
+     K = 16 and 1;
   8. the one-vs-rest class axis at the widths of LIBSVM's multi-class
      ``mnist`` (10 classes, 780 features, 60,000 training and 10,000 test
      rows; a numpy stand-in, ``make_blobs_multiclass`` seed 0, sep 0.12,
      noise 1.0), gamma 2^-11, lambda 1e-5, budget 500 per class, batch 8,
      the kernel cache and Lookup-WD: run (a), one epoch with the fused
-     event engine (``maintenance_engine="pallas"``, the ``merge_event``
-     kernel), and run (b), ``MC_STEPS["b"]`` steps of the epoch with
+     event engine (``maintenance_engine="pallas"``, one
+     ``merge_event_rounds`` launch a step and no ``merge_event``), and run
+     (b), ``MC_STEPS["b"]`` steps of the epoch with
      ``maintenance="multi-merge"``, merge_batch 4 (one ``multi_merge_choose``
      launch a maintenance round, 8 a step, and no ``multi_merge_scores``);
      a ``CUT:`` line says how many steps each run trains.  Every launch
@@ -49,10 +54,16 @@ non-zero exit code:
      scores), then the cache invariants I1-I3 of both;
  10. a short profiled window of each class-axis run;
  11. the fused ``train_step`` kernel against its plain version on the card,
-     from the same state: the class axis (C = 10, S = 508, D = 780, batch 8)
-     under ``merge`` and ``multi-merge``, a bf16 bank, a state below the
-     budget, a ragged shape and the binary shape (C = 1, S = 501, D = 123,
-     batch 1); then, with ``step_engine="pallas"`` (one ``train_step``
+     from the same state, at the cluster size the launch chooses (printed as
+     ``K=``) and at K = 1, 2 and 8 (and 16 on the ragged shape), every K bit
+     for bit equal to K = 1: the class axis (C = 10, S = 508, D = 780, batch
+     8) under ``merge`` and ``multi-merge``, a bf16 bank, a state below the
+     budget, one class below its budget beside classes over it with a
+     removal fallback, a ragged shape (S = 37, fewer slots than warps in a
+     cluster) and the binary shape (C = 1, S = 501, D = 123, batch 1) with
+     and without its one round; the device time of the class-axis, binary
+     and below-budget cases at the chosen K and at K = 1; then, with
+     ``step_engine="pallas"`` (one ``train_step``
      launch a step), run (c) (``merge``) and run (d) (``multi-merge``,
      merge_batch 4), one whole class-axis epoch each, and the binary fused
      run, one epoch of the ADULT stand-in with the cache at batch 1;
@@ -727,10 +738,13 @@ def phase_class_kernels(ops, ref, table):
                 records["merge_event"] = dict(max_abs_err=max(e_km, e_sv),
                                               **_time_event(ops, tab, st))
                 r = records["merge_event"]
+                by_k = r.pop("device_ms_by_k")
                 print(f"  merge_event timing: kernel {r['ms'] * 1e3:.2f} us per round (device "
-                      f"{us(r['device_ms'])} per launch) plain "
+                      f"per launch " + ", ".join(f"{us(v)} at K={k}" for k, v in by_k.items())
+                      + f") plain "
                       f"{r['plain_ms'] * 1e3:.2f} us bound {r['bound_ms'] * 1e3:.4f} us "
                       f"({r['bound_by']}); library call: none")
+    records["merge_event_rounds"] = phase_event_rounds(ops, tab, gen)
     return records
 
 
@@ -893,19 +907,33 @@ def _time_event(ops, tab, st, rounds: int = 50, repeats: int = 7):
         ops.merge_event(*work, box[0], over, tab, impl="cuda")
         box[0] = box[0] - over.to(box[0].dtype)
 
-    dm = device_ms(one_round, "merge_event_kernel", calls=rounds)
+    fixed = ops.merge_event_kernel.CLUSTER
+    by_k = {fixed: device_ms(one_round, "merge_event_kernel", calls=rounds)}
+
+    def round_at(k):
+        over = box[0] > budget
+        ops.merge_event_kernel.merge_event_cuda(*work, box[0], over, tab.h_table, tab.wd_table,
+                                                cluster=k)
+        box[0] = box[0] - over.to(box[0].dtype)
+
+    for k in (16, 1):
+        box[0] = reset()
+        by_k[k] = device_ms(lambda: round_at(k), "merge_event_kernel", calls=rounds)
     b_ms, b_by = _event_bound(sv0, al0, km0, count0, count0 > budget, tab)
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                device_ms=dm)
+                device_ms=by_k[fixed], device_ms_by_k=by_k)
 
 
 def _event_bound(sv_x, alpha, kmat, count, over, tab):
-    """Least time of one merge_event round on these inputs.  Bytes: count and
-    over of every class; per executing class its alpha and three cache rows
-    (kappa, partner, last) read over its active slots, two rows and two
-    columns written there, three SV rows read and two written, and the four
-    h-table cells at its winner; once, the unique WD-table cells that the
-    valid candidates of all executing classes touch.  Operations: ~25 a valid
+    """Least time of one merge_event round on these inputs (``_event_work``)."""
+    return bound_ms(*_event_work(sv_x, alpha, kmat, count, over, tab))
+
+
+def _event_parts(sv_x, alpha, kmat, count, over, tab):
+    """What one merge_event round on these inputs must touch: the unique
+    WD-table cells that the valid candidates of all executing classes read
+    (a tensor of cell indices), the active slots of the executing classes,
+    the number of executing classes, and the operations: ~25 a valid
     candidate (coordinates, bilinear mix, score), ~10 an active slot (the
     argmin and the z row) and 3 a feature (z)."""
     from repro_torch.kernels import ref
@@ -922,13 +950,174 @@ def _event_bound(sv_x, alpha, kmat, count, over, tab):
     i0 = torch.clamp(torch.floor(m[valid] * (g0 - 1)).long(), 0, g0 - 2)
     j0 = torch.clamp(torch.floor(k[valid] * (g1 - 1)).long(), 0, g1 - 2)
     cells = torch.cat([i0 * g1 + j0, i0 * g1 + j0 + 1, (i0 + 1) * g1 + j0,
-                       (i0 + 1) * g1 + j0 + 1]).unique().numel()
+                       (i0 + 1) * g1 + j0 + 1]).unique()
     n_over = int(over.sum())
     n_act = int(torch.where(over, count, 0).sum())
-    n_bytes = (c * (4 + 1) + n_act * 4 * (1 + 3 + 4) + n_over * 5 * d * sv_x.element_size()
-               + n_over * 4 * 4 + cells * 4)
     n_ops = 25.0 * int(valid.sum()) + 10.0 * n_act + 3.0 * d * n_over
-    return bound_ms(n_bytes, n_ops)
+    return cells, n_act, n_over, n_ops
+
+
+def _round_bytes(n_act, n_over, d, sv_bytes):
+    """Bytes of the per-round part of an event: per executing class three
+    cache rows (kappa, partner, last) read and two rows and two columns
+    written over its active slots, three SV rows read and two written, and
+    the four h-table cells at its winner."""
+    return n_act * 4 * (3 + 4) + n_over * (5 * d * sv_bytes + 4 * 4)
+
+
+def _event_work(sv_x, alpha, kmat, count, over, tab):
+    """Bytes and operations of one merge_event round on these inputs: count
+    and over of every class, alpha of each executing class read over its
+    active slots, ``_round_bytes``, and once the WD-table cells of
+    ``_event_parts``."""
+    c, s, d = sv_x.shape
+    cells, n_act, n_over, n_ops = _event_parts(sv_x, alpha, kmat, count, over, tab)
+    n_bytes = (c * (4 + 1) + n_act * 4 + _round_bytes(n_act, n_over, d, sv_x.element_size())
+               + cells.numel() * 4)
+    return n_bytes, n_ops
+
+
+def _rounds_work(st, tab, rounds, budget):
+    """Bytes and operations of one merge_event_rounds call on state ``st``
+    (sv_x, alpha, kmat, count, stepped IN PLACE by the plain rounds).  Once a
+    call: count and n_events of every class read and written, alpha of each
+    class over its budget read and written over its active slots, and the
+    union of the WD-table cells that all its rounds read.  Per round that
+    runs, on the state before it: ``_round_bytes`` and the operations of
+    ``_event_parts``."""
+    from repro_torch.kernels import ref
+    sv, al, km, count = st
+    c, s, d = sv.shape
+    n_bytes = c * 4 * 4 + 2 * 4 * int(torch.where(count > budget, count, 0).sum())
+    n_ops, cells = 0.0, []
+    for _ in range(rounds):
+        over = count > budget
+        if not bool(over.any()):
+            break
+        round_cells, n_act, n_over, o = _event_parts(sv, al, km, count, over, tab)
+        n_bytes += _round_bytes(n_act, n_over, d, sv.element_size())
+        n_ops += o
+        cells.append(round_cells)
+        ref.merge_event(sv, al, km, count, over, tab.h_table, tab.wd_table)
+        count -= over.to(count.dtype)
+    if cells:
+        n_bytes += torch.cat(cells).unique().numel() * 4
+    return n_bytes, n_ops
+
+
+def phase_event_rounds(ops, tab, gen):
+    """merge_event_rounds against its plain version and against MC_BATCH
+    single-round merge_event launches on the card, bit for bit (sv_x, alpha,
+    kmat, count, n_events), at the class-axis shape with fp32 and bf16 banks
+    and a class that falls back to removal, and at a ragged shape; then its
+    time at the class-axis shape."""
+    record = None
+    for sv_dtype in (torch.float32, torch.bfloat16):
+        for (c, s, d, budget) in [(MC_CLASSES, MC_BUDGET + MC_BATCH, MC_DIM, MC_BUDGET),
+                                  (3, 37, 5, 30)]:
+            st = _event_state(gen, c, s, d, sv_dtype, "cuda", budget, removal_class=c - 1)
+            n0 = torch.randint(0, 50, (c,), generator=gen).to("cuda", torch.int32)
+            outs = {}
+            for how in ("kernel", "plain", "rounds of merge_event"):
+                sv, al, km, count = (t.clone() for t in st[:4])
+                n = n0.clone()
+                if how == "rounds of merge_event":
+                    for _ in range(MC_BATCH):
+                        over = count > budget
+                        ops.merge_event(sv, al, km, count, over, tab, impl="cuda")
+                        count = count - over.to(count.dtype)
+                        n = n + over.to(n.dtype)
+                else:
+                    ops.merge_event_rounds(sv, al, km, count, n, tab, rounds=MC_BATCH,
+                                           budget=budget,
+                                           impl="cuda" if how == "kernel" else "ref")
+                outs[how] = (sv, al, km, count, n)
+            torch.cuda.synchronize()
+            got = outs["kernel"]
+            equal = {how: all(bool(torch.equal(g, w)) for g, w in zip(got, o))
+                     for how, o in outs.items() if how != "kernel"}
+            under = st[3] <= budget
+            untouched = all(bool(torch.equal(g[under], w[under])) for g, w in zip(got[:3], st[:3]))
+            events = int((got[4] - n0).sum())
+            err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got[:3], outs["plain"][:3]))
+            line = (f"merge_event_rounds C={c} S={s} D={d} {str(sv_dtype)[6:]} rounds {MC_BATCH}: "
+                    f"bit-equal to the plain rounds {equal['plain']} and to {MC_BATCH} merge_event "
+                    f"launches {equal['rounds of merge_event']} (sv_x, alpha, kmat, count, "
+                    f"n_events); {events} events, counts {got[3].tolist()} (budget {budget}); "
+                    f"classes at or under budget bitwise unchanged {untouched}; max_abs_err "
+                    f"{err:.3e} (tol 0)")
+            if (c, sv_dtype) == (MC_CLASSES, torch.float32):
+                line += f"; K={ops.merge_event_kernel.CLUSTER}"
+                record = _time_rounds(ops, tab, st, n0, budget, err)
+                line += (f"; timing over 40 calls, the budget {MC_BATCH} lower each call: kernel "
+                         f"{record['ms'] * 1e3:.2f} us per call (device "
+                         f"{us(record['device_ms'])}) plain {record['plain_ms'] * 1e3:.2f} us "
+                         f"bound {record['bound_ms'] * 1e3:.4f} us ({record['bound_by']}); "
+                         "library call: none")
+            print(line)
+            check(all(equal.values()) and untouched and err == 0.0,
+                  f"merge_event_rounds C={c} S={s} {sv_dtype} against its plain version")
+    return record
+
+
+def _time_rounds(ops, tab, st, n0, budget, err, calls: int = 40, repeats: int = 7):
+    """ms per merge_event_rounds call, kernel and plain: ``calls`` calls in a
+    row from state ``st``, the i-th with budget ``budget - MC_BATCH * i``, so
+    that from the third call on every class runs all MC_BATCH rounds (CUDA
+    events around the calls; each repeat from a fresh copy, made outside the
+    events); the median over ``repeats``.  Also the kernel's device time per
+    launch and the bound of the same calls, per call."""
+    work = [t.clone() for t in st[:4]] + [n0.clone()]
+    init = list(st[:4]) + [n0]
+
+    def timed(impl, calls, repeats):
+        means = []
+        for rep in range(repeats + 1):
+            for w, t in zip(work, init):
+                w.copy_(t)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(calls):
+                ops.merge_event_rounds(*work, tab, rounds=MC_BATCH, budget=budget - MC_BATCH * i,
+                                       impl=impl)
+            end.record()
+            torch.cuda.synchronize()
+            if rep:                                   # the first repeat warms up
+                means.append(start.elapsed_time(end) / calls)
+        return statistics.median(means)
+
+    k_ms, p_ms = timed("cuda", calls, repeats), timed("ref", 10, 3)
+    box = [calls]
+
+    def one_call(k):
+        if box[0] == calls:                           # a fresh copy (other kernels)
+            for w, t in zip(work, init):
+                w.copy_(t)
+            box[0] = 0
+        ops.merge_event_kernel.merge_event_rounds_cuda(
+            *work, tab.h_table, tab.wd_table, rounds=MC_BATCH,
+            budget=budget - MC_BATCH * box[0], cluster=k)
+        box[0] += 1
+
+    fixed = ops.merge_event_kernel.CLUSTER
+    dms = {}
+    for k in dict.fromkeys((fixed, 16, 1)):
+        box[0] = calls
+        dms[k] = device_ms(lambda: one_call(k), "merge_event_rounds_kernel", calls=calls)
+    dm = dms[fixed]
+    sv, al, km, count = (t.clone() for t in st[:4])
+    n_bytes = n_ops = 0.0
+    for i in range(calls):
+        b, o = _rounds_work([sv, al, km, count], tab, MC_BATCH, budget - MC_BATCH * i)
+        n_bytes, n_ops = n_bytes + b, n_ops + o
+    b_ms, b_by = bound_ms(n_bytes / calls, n_ops / calls)
+    print(f"  merge_event_rounds device time by cluster size: "
+          + ", ".join(f"K={k} {us(v)}" for k, v in dms.items()))
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, device_ms=dm)
 
 
 def mnist_standin(make_blobs_multiclass):
@@ -992,14 +1181,18 @@ def phase_class_run(mc, ops, kernel_cache, data, run: str):
                count=st.count.tolist(), n_merges=st.n_merges.tolist(),
                n_inserts=st.n_inserts.tolist(), launches=launches)
     print(f"class-axis run ({run}) {MC_RUNS[run]}: {json.dumps(res)}")
-    kernel = {"a": "merge_event", "b": "multi_merge_choose"}.get(run, "train_step")
+    kernel = {"a": "merge_event_rounds", "b": "multi_merge_choose"}.get(run, "train_step")
     check(st.sv_x.is_cuda and st.kmat.is_cuda, "the class-axis state lives on the card")
     check(max(res["count"]) <= MC_BUDGET, f"run ({run}): a count above the budget")
     check(min(res["n_merges"]) > 0, f"run ({run}): a class with no merge event")
     check(launches[kernel] > 0, f"run ({run}): {kernel} never launched")
-    if kernel == "train_step":
-        check(launches[kernel] == steps, f"run ({run}): train_step launched "
+    if kernel in ("train_step", "merge_event_rounds"):
+        check(launches[kernel] == steps, f"run ({run}): {kernel} launched "
               f"{launches[kernel]} times in {steps} steps")
+    if kernel == "merge_event_rounds":
+        # a step's rounds are one launch: no single-round launch on the path
+        check(launches["merge_event"] == 0, f"run ({run}): merge_event launched "
+              f"{launches['merge_event']} times; the path now runs merge_event_rounds")
     if kernel == "multi_merge_choose":
         # batch_size masked rounds a step, each one multi_merge_choose launch
         # and no launch of the scoring kernels
@@ -1155,22 +1348,33 @@ def phase_class_profile(mc, runs, data):
         _profile(step, MC_PROFILE_STEPS[run], f"class-axis run ({run})")
 
 
-def _step_state(gen, c, s, d, b, budget, count, gamma, sv_dtype, dev):
+def _step_state(gen, c, s, d, b, budget, count, gamma, sv_dtype, dev, removal_class=None):
     """A class-axis state with an exact cache and one minibatch for one fused
-    step: ``count`` active slots a class, alphas of both signs scaled so that
-    most batch rows (not all) violate the margin, and ``k_bb`` from the plain
-    RBF."""
+    step: ``count`` active slots a class (one int, or one a class), alphas of
+    both signs scaled so that most batch rows (not all) violate the margin,
+    and ``k_bb`` from the plain RBF.  ``removal_class`` is full, has negative
+    alphas of at least 0.01 but one positive 0.001 (its fixed partner, which
+    has no same-sign candidate) and negative targets, so its first event
+    falls back to removal."""
     from repro_torch.core import kernel_cache
     from repro_torch.kernels import ref
+    counts = torch.as_tensor(count if isinstance(count, list) else [count] * c)
     sv = torch.randn(c, s, d, generator=gen).to(dev, sv_dtype).contiguous()
     kmat = kernel_cache.exact_cache(sv, gamma).contiguous()
-    alpha = (torch.randn(c, s, generator=gen) * (2.0 / count ** 0.5)).to(dev)
-    alpha = torch.where(torch.arange(s, device=dev) < count, alpha, 0.0).contiguous()
+    scale = (2.0 / count ** 0.5 if isinstance(count, int)
+             else (2.0 / counts.float() ** 0.5)[:, None])
+    alpha = torch.randn(c, s, generator=gen) * scale
     xb = torch.randn(b, d, generator=gen).to(dev)
-    yb = torch.where(torch.rand(c, b, generator=gen) < 0.5, -1.0, 1.0).to(dev)
+    yb = torch.where(torch.rand(c, b, generator=gen) < 0.5, -1.0, 1.0)
+    if removal_class is not None:
+        alpha[removal_class] = -(alpha[removal_class].abs() + 0.01)
+        alpha[removal_class, 1] = 0.001
+        yb[removal_class] = -1.0
+        counts[removal_class] = s
+    alpha = torch.where(torch.arange(s) < counts[:, None], alpha, 0.0).to(dev).contiguous()
     ints = lambda v: torch.full((c,), v, dtype=torch.int32, device=dev)
-    return [sv, alpha, kmat, ints(count), ints(5_000), ints(0), ints(0), xb, yb,
-            ref.rbf_matrix(xb, xb, gamma)]
+    return [sv, alpha, kmat, counts.to(dev, torch.int32), ints(5_000), ints(0), ints(0), xb,
+            yb.to(dev), ref.rbf_matrix(xb, xb, gamma)]
 
 
 def _step_ties(ref, tab, args, kw):
@@ -1253,37 +1457,75 @@ def _step_bound(args, out, kw):
     return bound_ms(n_bytes, n_ops)
 
 
+def _step_device_ms(ops, tab, args, kw, k, reset_count: bool):
+    """Device ms per launch of train_step with ``k`` blocks a class on an
+    evolving copy of ``args``; with ``reset_count`` the counters are reset
+    before every call, so a state below its budget stays below it."""
+    work = [t.clone() for t in args[:7]]
+
+    def call():
+        if reset_count:
+            for i in (3, 5, 6):
+                work[i].copy_(args[i])
+        ops.train_step_kernel.train_step_cuda(*work, *args[7:], tab.h_table, tab.wd_table,
+                                              cluster=k, **kw)
+
+    return device_ms(call, "train_step_kernel")
+
+
 def phase_step_kernel(ops, ref, table):
-    """train_step against its plain version on the card, from the same state."""
+    """train_step against its plain version on the card, from the same state,
+    at the cluster size the launch chooses and at the sizes of its ``Ks``
+    column, every one bit-equal to one block a class; its times at the
+    class-axis and binary shapes."""
+    from repro_torch.kernels import train_step as ts
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 11)
     tab = table.to(dev)
     s_mc = MC_BUDGET + MC_BATCH
-    cases = [  # (label, C, budget, D, B, count, gamma, lambda, sv dtype, maintenance)
+    half = MC_BUDGET // 2
+    mixed = [MC_BUDGET - 2, half, MC_BUDGET - 1, MC_BUDGET, MC_BUDGET - 5, MC_BUDGET - 2,
+             MC_BUDGET - 8, MC_BUDGET - 2, MC_BUDGET - 3, MC_BUDGET]
+    ks = (1, 2, 8)
+    cases = [  # (label, C, budget, D, B, count, gamma, lambda, sv dtype, maintenance, Ks, removal)
         ("class axis", MC_CLASSES, MC_BUDGET, MC_DIM, MC_BATCH, MC_BUDGET - 2, MC_GAMMA,
-         MC_LAMBDA, torch.float32, "merge"),
+         MC_LAMBDA, torch.float32, "merge", ks, None),
         ("class axis", MC_CLASSES, MC_BUDGET, MC_DIM, MC_BATCH, MC_BUDGET - 2, MC_GAMMA,
-         MC_LAMBDA, torch.float32, "multi-merge"),
+         MC_LAMBDA, torch.float32, "multi-merge", ks, None),
         ("bf16 bank", MC_CLASSES, MC_BUDGET, MC_DIM, MC_BATCH, MC_BUDGET - 2, MC_GAMMA,
-         MC_LAMBDA, torch.bfloat16, "multi-merge"),
-        ("below budget", MC_CLASSES, MC_BUDGET, MC_DIM, MC_BATCH, MC_BUDGET // 2, MC_GAMMA, MC_LAMBDA,
-         torch.float32, "merge"),
-        ("ragged", 3, 33, 5, 4, 31, 0.5, 1e-3, torch.float32, "multi-merge"),
-        ("ragged", 3, 33, 5, 4, 31, 0.5, 1e-3, torch.float32, "merge"),
-        ("binary", 1, BUDGET, DIM, 1, BUDGET, 2.0 ** -7, 1e-5, torch.float32, "merge"),
+         MC_LAMBDA, torch.bfloat16, "multi-merge", (1,), None),
+        ("below budget", MC_CLASSES, MC_BUDGET, MC_DIM, MC_BATCH, half, MC_GAMMA, MC_LAMBDA,
+         torch.float32, "merge", (1,), None),
+        ("mixed + removal", MC_CLASSES, MC_BUDGET, MC_DIM, MC_BATCH, mixed, MC_GAMMA, MC_LAMBDA,
+         torch.float32, "merge", ks, MC_CLASSES - 1),
+        ("mixed + removal", MC_CLASSES, MC_BUDGET, MC_DIM, MC_BATCH, mixed, MC_GAMMA, MC_LAMBDA,
+         torch.float32, "multi-merge", ks, MC_CLASSES - 1),
+        ("ragged", 3, 33, 5, 4, 31, 0.5, 1e-3, torch.float32, "multi-merge", (1, 2, 8, 16), None),
+        ("ragged", 3, 33, 5, 4, 31, 0.5, 1e-3, torch.float32, "merge", (1, 2, 8, 16), None),
+        ("binary", 1, BUDGET, DIM, 1, BUDGET, 2.0 ** -7, 1e-5, torch.float32, "merge", ks, None),
+        ("binary below", 1, BUDGET, DIM, 1, BUDGET - 100, 2.0 ** -7, 1e-5, torch.float32,
+         "merge", (1,), None),
     ]
     records = {}
-    for label, c, budget, d, b, count, gamma, lam, sv_dtype, maint in cases:
+    for label, c, budget, d, b, count, gamma, lam, sv_dtype, maint, case_ks, removal in cases:
         s = budget + b
         kw = dict(budget=budget, lambda_=lam, gamma=gamma, batch_size=b, maintenance=maint,
                   merge_batch=4)
-        args = _step_state(gen, c, s, d, b, budget, count, gamma, sv_dtype, dev)
-        got = [t.clone() for t in args[:7]]
+        args = _step_state(gen, c, s, d, b, budget, count, gamma, sv_dtype, dev, removal)
+        multi = maint == "multi-merge"
+        chosen = ts.cluster_size(sv_dtype == torch.bfloat16, c, s, d, b, multi, 4 if multi else 1)
         want = [t.clone() for t in args[:7]]
-        g_out = ops.train_step(*got, *args[7:], tab, impl="cuda", **kw)
         w_out = ops.train_step(*want, *args[7:], tab, impl="ref", **kw)
+        outs = {}
+        for k in dict.fromkeys((chosen, *case_ks)):
+            got = [t.clone() for t in args[:7]]
+            outs[k] = ts.train_step_cuda(*got, *args[7:], tab.h_table, tab.wd_table, cluster=k,
+                                         **kw)
         torch.cuda.synchronize()
-        ints_equal = all(bool(torch.equal(g_out[k], w_out[k])) for k in (3, 4, 5, 6))
+        g_out = outs[chosen]
+        same_k = {k: all(bool(torch.equal(x, y)) for x, y in zip(o, outs[1]))
+                  for k, o in outs.items() if k != 1 and 1 in outs}
+        ints_equal = all(bool(torch.equal(g_out[i], w_out[i])) for i in (3, 4, 5, 6))
         e_sv = (g_out[0].float() - w_out[0].float()).abs().max().item()
         e_al = (g_out[1] - w_out[1]).abs().max().item()
         e_km = (g_out[2] - w_out[2]).abs().max().item()
@@ -1293,20 +1535,28 @@ def phase_step_kernel(ops, ref, table):
         floats_ok = (e_sv <= sv_tol and e_km <= 5e-5
                      and bool(torch.allclose(g_out[1], w_out[1], rtol=1e-5, atol=5e-5)))
         events = int((w_out[6] - args[6]).sum())
-        line = (f"train_step {label} {maint} C={c} S={s} D={d} B={b} {str(sv_dtype)[6:]}: "
+        line = (f"train_step {label} {maint} C={c} S={s} D={d} B={b} {str(sv_dtype)[6:]} "
+                f"K={chosen}: "
                 f"integer state equal {ints_equal} (events {events}, inserts "
                 f"{int(w_out[5].sum())}) max err sv_x {e_sv:.3e} (tol {sv_tol:.3e}) alpha "
-                f"{e_al:.3e} kmat {e_km:.3e} (rtol 1e-5, atol 5e-5)")
+                f"{e_al:.3e} kmat {e_km:.3e} (rtol 1e-5, atol 5e-5); bit-equal to K=1 at K "
+                f"{same_k}")
+        check(all(same_k.values()), f"train_step {label} {maint}: a cluster size parts from K=1")
+        if label.startswith("below") or label == "binary below":
+            check(events == 0, f"train_step {label}: an event ran below the budget")
+        else:
+            check(events > 0, f"train_step {label} {maint}: no event ran")
         if label == "below budget":
             # the rounds are bitwise no-ops: merge and multi-merge rounds give one state
             other = [t.clone() for t in args[:7]]
             o_out = ops.train_step(*other, *args[7:], tab, impl="cuda",
                                    **{**kw, "maintenance": "multi-merge"})
-            noop = events == 0 and all(bool(torch.equal(x, y)) for x, y in zip(g_out, o_out))
+            noop = all(bool(torch.equal(x, y)) for x, y in zip(g_out, o_out))
             line += f"; no events, merge and multi-merge rounds bitwise equal {noop}"
             check(noop, "train_step below the budget: the rounds are not bitwise no-ops")
-        else:
-            check(events > 0, f"train_step {label} {maint}: no event ran")
+        if removal is not None:
+            under = [q for q, n in enumerate(count) if n + b <= budget]
+            line += f"; classes that cannot exceed the budget {under}"
         if not ints_equal:
             gaps = _step_ties(ref, tab, args, kw)
             line += f"; parts: least |margin - 1| {gaps[0]:.3e}, least tie gap {gaps[1]:.3e}"
@@ -1314,22 +1564,27 @@ def phase_step_kernel(ops, ref, table):
                   "without a near-tie")
         print(line)
         check(floats_ok or not ints_equal, f"train_step {label} {maint} against its plain version")
-        if label == "class axis" or label == "binary":
-            work = [t.clone() for t in args[:7]]
-            plain = [t.clone() for t in args[:7]]
-            k_ms = time_call(lambda: ops.train_step(*work, *args[7:], tab, impl="cuda", **kw))
-            p_ms = time_call(lambda: ops.train_step(*plain, *args[7:], tab, impl="ref", **kw),
-                             calls=10, repeats=3)
-            dm = device_ms(lambda: ops.train_step(*work, *args[7:], tab, impl="cuda", **kw),
-                           "train_step_kernel")
+        if label in ("class axis", "binary", "below budget", "binary below"):
+            below = "below" in label
+            times = {k: _step_device_ms(ops, tab, args, kw, k, below)
+                     for k in dict.fromkeys((chosen, 1))}
             b_ms, b_by = _step_bound(args, w_out, kw)
-            print(f"  train_step timing ({label} {maint}): kernel {k_ms * 1e3:.2f} us per call "
-                  f"(device {us(dm)}) plain {p_ms * 1e3:.2f} us bound {b_ms * 1e3:.4f} us "
-                  f"({b_by}); library call: none")
-            if label == "class axis" and maint == "merge":
-                records["train_step"] = dict(max_abs_err=max(e_sv, e_al, e_km), ms=k_ms,
-                                             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                                             library_ms=None, device_ms=dm)
+            line = (f"  train_step timing ({label} {maint}): device {us(times[chosen])} at "
+                    f"K={chosen}, {us(times[1])} at K=1; bound {b_ms * 1e3:.4f} us ({b_by})")
+            if not below:
+                work = [t.clone() for t in args[:7]]
+                plain = [t.clone() for t in args[:7]]
+                k_ms = time_call(lambda: ops.train_step(*work, *args[7:], tab, impl="cuda", **kw))
+                p_ms = time_call(lambda: ops.train_step(*plain, *args[7:], tab, impl="ref", **kw),
+                                 calls=10, repeats=3)
+                line += (f"; kernel {k_ms * 1e3:.2f} us per call, plain {p_ms * 1e3:.2f} us; "
+                         "library call: none")
+                if label == "class axis" and maint == "merge":
+                    records["train_step"] = dict(max_abs_err=max(e_sv, e_al, e_km), ms=k_ms,
+                                                 plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                                 library_ms=None, device_ms=times[chosen],
+                                                 cluster=chosen)
+            print(line)
     return records
 
 
@@ -1560,7 +1815,8 @@ def main() -> int:
 
     # launches on the main paths: the binary runs of phase 4 (rbf_matrix,
     # merge_pick, gss, and merge_scores, now 0) and the class-axis runs
-    counts["merge_event"] = mc_runs["a"][0]["launches"]["merge_event"]
+    for name in ("merge_event", "merge_event_rounds"):
+        counts[name] = mc_runs["a"][0]["launches"][name]
     for name in ("multi_merge_scores", "multi_merge_choose"):
         counts[name] = mc_runs["b"][0]["launches"][name]
     counts["train_step"] = (binary_fused[0]["launches"]["train_step"]
@@ -1578,6 +1834,8 @@ def main() -> int:
                                "src/repro/kernels/merge_multi.py:68"),
         "merge_event": ("src/repro_torch/csrc/merge_event.cu",
                         "src/repro/kernels/merge_event.py:193"),
+        "merge_event_rounds": ("src/repro_torch/csrc/merge_event.cu",
+                               "src/repro/kernels/merge_event.py:193"),
         "train_step": ("src/repro_torch/csrc/train_step.cu",
                        "src/repro/kernels/train_step.py:370"),
     }

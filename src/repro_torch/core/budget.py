@@ -30,7 +30,7 @@ in one fused update), ``removal`` (drop the excess smallest-|alpha| SVs),
 survivors through the cached rows) and ``quantized`` (a fixed codebook in
 the first ``budget`` slots absorbs each over-budget violator).  The last two
 read the cache.  ``run_maintenance_classes`` is the fused event engine: one
-``merge_event`` kernel launch per round for every class.
+``merge_event_rounds`` kernel launch for a step's rounds on every class.
 """
 from __future__ import annotations
 
@@ -530,11 +530,11 @@ def run_maintenance_classes(sv_x, alpha, kmat, count, n_events, table, *, budget
                             impl: str = "auto", unroll: int = 1):
     """Budget maintenance for a stacked class axis as fused event rounds.
 
-    Each of the ``unroll`` rounds is ONE ``merge_event`` launch in which every
-    class still over budget runs a whole Lookup-WD merge event and the other
-    classes are not touched; the rounds are masked on the device, so no host
-    sync decides how many run (one insert minibatch bounds the excess by
-    ``batch_size``, the caller's ``unroll``).  With no class over budget the
+    The ``unroll`` rounds are ONE ``merge_event_rounds`` launch in which, each
+    round, every class still over budget runs a whole Lookup-WD merge event
+    and the other classes are not touched; the rounds are masked on the
+    device, so no host sync decides how many run (one insert minibatch
+    bounds the excess by ``batch_size``, the caller's ``unroll``).  With no class over budget the
     state comes back bitwise unchanged.  The cache is required: the event
     reads its kappa rows from it.  With C = 1 this is the single-class
     engine (``_merge_once`` off the cache), whose decisions the event's are
@@ -561,12 +561,11 @@ def event_rounds_(sv_x, alpha, kmat, count, n_events, table, *, budget: int,
     own, such as the insert half of a training step, this saves the copies."""
     _check_event_engine(kmat, table, unroll)
     sv_x, alpha, kmat = sv_x.contiguous(), alpha.contiguous(), kmat.contiguous()
-    for _ in range(unroll):
-        over = count > budget
-        kops.merge_event(sv_x, alpha, kmat, count, over, table, impl=impl)
-        count = count - over.to(count.dtype)
-        n_events = n_events + over.to(n_events.dtype)
-    return sv_x, alpha, kmat, count, n_events
+    # the rounds update count and n_events in place too: on a copy (one
+    # launch for both), since the caller's counters may be its previous state's
+    count, n_events = torch.stack((count, n_events))
+    return kops.merge_event_rounds(sv_x, alpha, kmat, count, n_events, table, rounds=unroll,
+                                   budget=budget, impl=impl)
 
 
 def _check_event_engine(kmat, table, unroll: int) -> None:

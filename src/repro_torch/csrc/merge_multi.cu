@@ -27,7 +27,8 @@
 // into shared memory (P * s * 4 bytes: 8 KB at the class axis's P = 4,
 // s = 508), runs the greedy disjoint pair choice with first-occurrence block
 // argmins and the bookkeeping on one thread (multi_merge_choice.cuh, the code
-// of the fused train step's multi-merge rounds), and reads the h table at
+// of the fused train step's multi-merge rounds, here a cluster of one
+// block), and reads the h table at
 // each pair's winner only.  On a training step the host, not the card, is
 // the bound: this replaces about 94 small launches of a masked multi-merge
 // round (the mask, the scoring, and ~20 one-element ops per pair of the
@@ -85,8 +86,9 @@ __global__ void __launch_bounds__(THREADS) multi_merge_choose_kernel(
     bool* __restrict__ exec_out, float* __restrict__ h_out) {
   extern __shared__ float wd[];
   __shared__ PairChoice ch;
-  __shared__ float red_v[32];
-  __shared__ int red_i[32];
+  __shared__ Reduce rd;
+  const Part pt = make_part(1, s, 1);   // the whole class in one block
+  int ph = 0;
   const int c = blockIdx.x;
   const float* al = alpha + (size_t)c * s;
   const float* kap = kappa + (size_t)c * p * s;
@@ -96,8 +98,8 @@ __global__ void __launch_bounds__(THREADS) multi_merge_choose_kernel(
   }
   __syncthreads();
   const int cnt = count[c];
-  score_pairs(kap, al, cnt, p, s, ch, wd_table, g0, g1, wd);
-  greedy_choice(wd, p, s, cnt - budget, ch, red_v, red_i);
+  score_pairs(pt, kap, al, cnt, p, ch, wd_table, g0, g1, wd);
+  greedy_choice(pt, wd, p, cnt - budget, ch, rd, ph);
   for (int k = threadIdx.x; k < p; k += blockDim.x) {
     const int bk = ch.b[k];
     int off;

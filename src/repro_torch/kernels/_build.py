@@ -45,6 +45,9 @@ SOURCES = {
 # multi_merge_choice.cuh MAX_P)
 SMEM_LIMIT = 232_448
 MAX_MERGE_BATCH = 32
+# blocks in a class's thread-block cluster (csrc/cluster.cuh), largest first;
+# 16 is above the portable cluster size of 8
+CLUSTER_SIZES = (16, 8, 4, 2, 1)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -128,6 +131,31 @@ def function(name: str, symbol: str, argtypes: str, restype=ctypes.c_int):
         fn.restype = restype
         _FNS[(name, symbol)] = fn
     return fn
+
+
+def choose_cluster(c: int, resident: dict) -> int:
+    """The largest K in ``CLUSTER_SIZES`` for which ``resident[K]`` (clusters
+    of K blocks the card keeps resident at once, from
+    ``cudaOccupancyMaxActiveClusters``) holds all ``c`` classes' clusters;
+    1 when none does (one block a class needs no co-residency)."""
+    for k in CLUSTER_SIZES:
+        if resident.get(k, 0) >= c:
+            return k
+    return 1
+
+
+def resident_clusters(name: str, symbol: str, *args) -> dict:
+    """``{K: clusters of K resident at once}`` from the C entry ``symbol`` of
+    ``csrc/<name>.cu``, called as ``symbol(K, *args)``; raises on a CUDA error."""
+    fn = function(name, symbol, "i" * (1 + len(args)))
+    counts = {}
+    for k in CLUSTER_SIZES:
+        n = fn(k, *args)
+        if n < 0:
+            raise RuntimeError(f"{symbol}: cudaOccupancyMaxActiveClusters failed for K={k} "
+                               f"with error {-n}")
+        counts[k] = n
+    return counts
 
 
 def dense(t):

@@ -26,6 +26,7 @@ _KERNELS = {"rbf_matrix": (rbf_kernel, "launches"), "merge_scores": (merge_looku
             "multi_merge_scores": (merge_multi, "launches"),
             "multi_merge_choose": (merge_multi, "choose_launches"),
             "merge_event": (merge_event_kernel, "launches"),
+            "merge_event_rounds": (merge_event_kernel, "rounds_launches"),
             "train_step": (train_step_kernel, "launches")}
 
 
@@ -193,13 +194,32 @@ def merge_event(sv_x, alpha, kmat, count, over, table, *, decisions=None, impl: 
     Both the kernel and the plain version update ``sv_x``, ``alpha`` and
     ``kmat`` in place (the TPU kernel aliases its outputs to its inputs) and
     return them; clone the inputs first to keep them.  The caller owns
-    ``count -= over`` and the round schedule
-    (``core.budget.run_maintenance_classes``)."""
+    ``count -= over`` and the round schedule; the training paths run a
+    step's rounds in one ``merge_event_rounds`` call instead."""
     if _use_kernel(impl, sv_x):
         return merge_event_kernel.merge_event_cuda(sv_x, alpha, kmat, count, over,
                                                    table.h_table, table.wd_table, decisions)
     return ref.merge_event(sv_x, alpha, kmat, count, over, table.h_table, table.wd_table,
                            decisions)
+
+
+def merge_event_rounds(sv_x, alpha, kmat, count, n_events, table, *, rounds: int, budget: int,
+                       impl: str = "auto"):
+    """A step's ``rounds`` masked maintenance-event rounds over stacked
+    classes, IN PLACE: each round, every class with ``count > budget`` runs
+    one Lookup-WD merge event (``merge_event``), then ``count -= 1`` and
+    ``n_events += 1`` there.  Shapes as ``merge_event``; ``count`` and
+    ``n_events`` ((C,) int32) are updated in place as well, so hand over
+    tensors that nothing else holds.  On the card one ``merge_event_rounds``
+    launch (one cluster a class runs the loop); the plain version
+    ``ref.merge_event_rounds`` is the loop of ``ref.merge_event``.  Returns
+    ``(sv_x, alpha, kmat, count, n_events)``."""
+    if _use_kernel(impl, sv_x):
+        return merge_event_kernel.merge_event_rounds_cuda(
+            sv_x, alpha, kmat, count, n_events, table.h_table, table.wd_table, rounds=rounds,
+            budget=budget)
+    return ref.merge_event_rounds(sv_x, alpha, kmat, count, n_events, table.h_table,
+                                  table.wd_table, rounds=rounds, budget=budget)
 
 
 def train_step(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb, k_bb, table, *,

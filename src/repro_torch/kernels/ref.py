@@ -364,6 +364,25 @@ def merge_event(sv_x, alpha, kmat, count, over, h_table, wd_table, decisions=Non
     return sv_x, alpha, kmat
 
 
+def merge_event_rounds(sv_x, alpha, kmat, count, n_events, h_table, wd_table, *, rounds: int,
+                       budget: int):
+    """A step's masked event rounds, IN PLACE (the plain version of the
+    ``merge_event_rounds`` kernel): ``rounds`` rounds of ``merge_event``, each
+    on the classes still over ``budget``, then ``count -= over`` and
+    ``n_events += over``.  ``count`` and ``n_events`` ((C,) int32) are
+    updated in place too.  Returns ``(sv_x, alpha, kmat, count, n_events)``,
+    the same tensors."""
+    cnt, n = count.clone(), n_events.clone()
+    for _ in range(rounds):
+        over = cnt > budget
+        merge_event(sv_x, alpha, kmat, cnt, over, h_table, wd_table)
+        cnt = cnt - over.to(cnt.dtype)
+        n = n + over.to(n.dtype)
+    count.copy_(cnt)
+    n_events.copy_(n)
+    return sv_x, alpha, kmat, count, n_events
+
+
 def multi_merge_event(sv_x, alpha, kmat, count, over, h_table, wd_table, *, budget: int,
                       merge_batch: int):
     """One multi-merge maintenance round over stacked classes, off the kernel

@@ -1,11 +1,13 @@
 """Launch wrapper for the hand-written fused train-step kernel (``csrc/train_step.cu``).
 
 Replaces ``repro.kernels.train_step.train_step_pallas`` on the H100: one
-thread block per class runs a whole training step (margin rows, Pegasos
-shrink and violator insert with the cache insert, then ``batch_size`` masked
-``merge`` or ``multi-merge`` event rounds) and updates the stacked state IN
-PLACE, as the TPU kernel aliases its outputs to its inputs.  ``launches``
-counts the kernel launches.
+thread-block cluster of K blocks per class runs a whole training step
+(margin rows, Pegasos shrink and violator insert with the cache insert, then
+``batch_size`` masked ``merge`` or ``multi-merge`` event rounds) and updates
+the stacked state IN PLACE, as the TPU kernel aliases its outputs to its
+inputs.  K is the largest cluster size whose C clusters the card keeps
+resident at once (``_build.choose_cluster``), unless the caller fixes it;
+every K writes the same bits.  ``launches`` counts the kernel launches.
 """
 from __future__ import annotations
 
@@ -21,14 +23,23 @@ _SV_DTYPES = (torch.float32, torch.bfloat16)
 
 
 @functools.lru_cache(maxsize=64)
-def _smem_need(s: int, d: int, b: int, multi: bool, p: int) -> int:
-    fn = _build.function("train_step", "train_step_smem_bytes", "iiiii", ctypes.c_longlong)
-    return fn(s, d, b, int(multi), p)
+def cluster_size(sv_bf16: bool, c: int, s: int, d: int, b: int, multi: bool, p: int) -> int:
+    """The cluster size K the launch takes for this shape (cached)."""
+    resident = _build.resident_clusters("train_step", "train_step_max_clusters", int(sv_bf16),
+                                        c, s, d, b, int(multi), p)
+    return _build.choose_cluster(c, resident)
+
+
+@functools.lru_cache(maxsize=64)
+def _smem_need(s: int, d: int, b: int, multi: bool, p: int, k: int) -> int:
+    fn = _build.function("train_step", "train_step_smem_bytes", "iiiiii", ctypes.c_longlong)
+    return fn(s, d, b, int(multi), p, k)
 
 
 def train_step_cuda(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb, k_bb,
                     h_table, wd_table, *, budget: int, lambda_: float, gamma: float,
-                    batch_size: int, maintenance: str = "merge", merge_batch: int = 4):
+                    batch_size: int, maintenance: str = "merge", merge_batch: int = 4,
+                    cluster: int | None = None):
     """One fused step on the card, in place.
 
     sv_x: (C, S, D) fp32 or bf16; alpha: (C, S) fp32; kmat: (C, S, S) fp32;
@@ -37,7 +48,9 @@ def train_step_cuda(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb,
     ``batch_size``; yb: (C, B) fp32 one-vs-rest targets; k_bb: (B, B) fp32
     ``k(xb, xb)``; tables: (G0, G1) fp32 of one shape.  ``maintenance`` is
     ``"merge"`` or ``"multi-merge"`` (``merge_batch`` pairs an event, at most
-    32).  Returns the six updated tensors and ``step + 1`` as ``(sv_x, alpha,
+    32).  ``cluster`` fixes the blocks a class (one of
+    ``_build.CLUSTER_SIZES``); None takes ``cluster_size``'s choice.  A launch the card refuses raises.
+    Returns the six updated tensors and ``step + 1`` as ``(sv_x, alpha,
     kmat, count, step + 1, n_inserts, n_merges)``."""
     global launches
     dev = sv_x.device
@@ -66,8 +79,11 @@ def train_step_cuda(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb,
                          "n_merges in place: they must be contiguous")
     multi = maintenance == "multi-merge"
     p = merge_batch if multi else 1
-    if not 1 <= p <= _build.MAX_MERGE_BATCH:
-        raise ValueError(f"merge_batch={merge_batch} outside [1, {_build.MAX_MERGE_BATCH}]")
+    if not 1 <= p <= min(_build.MAX_MERGE_BATCH, s):
+        raise ValueError(f"merge_batch={merge_batch} outside [1, {_build.MAX_MERGE_BATCH}] "
+                         f"or above S={s}")
+    if cluster is not None and cluster not in _build.CLUSTER_SIZES:
+        raise ValueError(f"cluster={cluster} not in {_build.CLUSTER_SIZES}")
     g0, g1 = wd_table.shape
     if h_table.shape != wd_table.shape or g0 < 2 or g1 < 2:
         raise ValueError("the two tables must share one shape of at least 2 x 2")
@@ -75,15 +91,17 @@ def train_step_cuda(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb,
     h_table, wd_table = h_table.contiguous(), wd_table.contiguous()
     if c == 0 or s == 0 or b == 0:
         return sv_x, alpha, kmat, count, step + 1, n_inserts, n_merges
-    need = _smem_need(s, d, b, multi, p)
+    bf16 = sv_x.dtype == torch.bfloat16
+    k = cluster or cluster_size(bf16, c, s, d, b, multi, p)
+    need = _smem_need(s, d, b, multi, p, k)
     if need < 0 or need > _build.SMEM_LIMIT:
         raise ValueError(f"train_step_cuda needs {need} bytes of shared memory a block for "
-                         f"S={s}, D={d}, B={b} (limit {_build.SMEM_LIMIT})")
-    status = _build.function("train_step", "train_step_launch", "pipppppppppppiiiiiiiffiip")(
-        sv_x.data_ptr(), int(sv_x.dtype == torch.bfloat16), alpha.data_ptr(), kmat.data_ptr(),
+                         f"S={s}, D={d}, B={b}, K={k} (limit {_build.SMEM_LIMIT})")
+    status = _build.function("train_step", "train_step_launch", "pipppppppppppiiiiiiiffiiip")(
+        sv_x.data_ptr(), int(bf16), alpha.data_ptr(), kmat.data_ptr(),
         count.data_ptr(), step.data_ptr(), n_inserts.data_ptr(), n_merges.data_ptr(),
         xb.data_ptr(), yb.data_ptr(), k_bb.data_ptr(), h_table.data_ptr(), wd_table.data_ptr(),
-        g0, g1, c, s, d, b, budget, float(lambda_), float(gamma), int(multi), p,
+        g0, g1, c, s, d, b, budget, float(lambda_), float(gamma), int(multi), p, k,
         _build.stream(sv_x.get_device()))
     _build.check(status, "train_step")
     launches += 1

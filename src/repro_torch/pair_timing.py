@@ -1,32 +1,47 @@
 """Paired host timing of training steps and kernel calls across two source trees.
 
     python3 src/repro_torch/pair_timing.py --tree build/parent/src --tree src \
-        [--pairs 10] [--steps 1000] [--class-steps 50] [--calls 2000] \
-        [--out pair_timing.json]
+        [--pairs 10] [--steps 1000] [--class-steps 50] [--fused-steps 500] \
+        [--calls 2000] [--out pair_timing.json]
 
 Each ``--tree`` is a ``src`` directory holding a ``repro_torch`` package (for
 example the parent commit unpacked beside the working tree).  One worker
 process per tree imports the package from that tree only, builds its kernels
 and trains the binary main path of ``chip_smoke.py`` on the card (ADULT
 stand-in, 32,561 x 123 from numpy seed 0, gamma 2^-7, lambda 1e-5, budget
-500, batch 1) until the budget is full.  Then the workers take turns, in
-the order A B B A for each two pairs, to run the same ``--steps`` steps
-from that same warm state, once per method (``lookup-wd`` and ``gss``); a
-run's time is the host's wall clock around its steps, with the card
-synchronised at both ends.  The step is host-bound (a few hundred small
-launches), so both workers keep their process warm across runs and only
-one of them runs at a time.  In the same turns each worker also runs
-``--class-steps`` steps of ``chip_smoke.py``'s class-axis run (b) (the
-MNIST-width stand-in, C = 10, 780 features, budget 500, batch 8, the kernel
-cache, ``multi-merge`` with merge_batch 4) from a state trained until every
-class is at its budget, and ``--calls`` back-to-back calls of
-``ops.merge_scores`` (s = 501) and ``ops.multi_merge_scores`` (C = 10, P =
-4, s = 508) on the card, timed on the host clock.
+500, batch 1) until the budget is full, once per configuration: ``lookup-wd``,
+``gss`` and the fused step (``lookup-wd`` with the kernel cache and
+``step_engine="pallas"``).  It does the same for ``chip_smoke.py``'s
+class-axis runs (the MNIST-width stand-in, C = 10, 780 features, budget 500,
+batch 8, the kernel cache, Lookup-WD), trained until every class is at its
+budget: run (a) (the fused event engine, ``maintenance_engine="pallas"``),
+run (b) (``multi-merge``, merge_batch 4), run (c) (the fused step) and run
+(d) (the fused step under ``multi-merge``).  Then the workers take turns,
+in the order A B B A for each two pairs, to run the same steps from that
+same warm state, through the epoch loop (``train_epoch`` and
+``train_epoch_multiclass``, as ``chip_smoke.py`` trains): ``--steps`` of
+each binary configuration, ``--class-steps`` of run (b) and
+``--fused-steps`` of runs (a), (c) and (d); a run's time is the host's wall
+clock around its steps, with the card synchronised at both ends.
+The steps are host-bound (a few to a few hundred small launches each), so
+both workers keep their process warm across runs and only one of them runs
+at a time.  In the same turns each worker also runs ``--calls`` back-to-back
+calls of ``ops.merge_scores`` (s = 501) and ``ops.multi_merge_scores`` (C =
+10, P = 4, s = 508) on the card, timed on the host clock.
 
-Prints each run and, per method, each tree's median, quartiles, mean and
-range, the same of the paired differences (second tree minus first) and in
-how many pairs the second tree was slower; ``--out`` also writes them as
-JSON.
+Each tree's decisions are held to the other's: the integer state (count,
+n_inserts, n_merges) of every warm state and after every run must be equal.
+Before the pairs, each worker also splits the fused step (``train_step``)
+of each fused configuration: its device time a launch (``torch.profiler``,
+``SPLIT_STEPS`` steps, each from the warm state, so that every step keeps
+its shape) at the budget, where each step that inserts runs event rounds,
+and with every count lowered by one batch, so that no round runs (the
+margin rows and the insert alone).
+
+Prints each run and, per configuration, each tree's median, quartiles, mean
+and range, the same of the paired differences (second tree minus first) and
+in how many pairs the second tree was slower; ``--out`` also writes them as
+JSON.  Exits 1 if the two trees' decisions differ anywhere.
 """
 from __future__ import annotations
 
@@ -38,14 +53,22 @@ import sys
 import time
 from pathlib import Path
 
-METHODS = ("lookup-wd", "gss")
-CLASS_RUN = "multi-merge (b)"
+# the binary configurations and the class-axis runs, by name
+BINARY = {"lookup-wd": dict(method="lookup-wd"), "gss": dict(method="gss"),
+          "fused lookup-wd": dict(method="lookup-wd", use_kernel_cache=True,
+                                  step_engine="pallas")}
+CLASS_RUNS = {"merge_event engine (a)": dict(maintenance_engine="pallas"),
+              "multi-merge (b)": dict(maintenance="multi-merge", merge_batch=4),
+              "fused merge (c)": dict(step_engine="pallas"),
+              "fused multi-merge (d)": dict(step_engine="pallas", maintenance="multi-merge",
+                                            merge_batch=4)}
 OPS = ("op merge_scores", "op multi_merge_scores")
 N_ROWS, DIM, BUDGET, GAMMA, LAMBDA = 32_561, 123, 500, 2.0 ** -7, 1e-5
 WARM_STEPS = 4_000
 # run (b) of chip_smoke.py: LIBSVM mnist's widths, budget 500 a class, batch 8
 MC_CLASSES, MC_DIM, MC_TRAIN, MC_TEST, MC_BATCH = 10, 780, 60_000, 10_000, 8
 MC_WARM_STEPS = 700
+SPLIT_STEPS = 50
 
 
 def worker(tree: str) -> None:
@@ -66,22 +89,35 @@ def worker(tree: str) -> None:
     xs = torch.as_tensor(xtr)[perm].to(dev)
     ys = torch.as_tensor(ytr)[perm].to(dev)
     warm = {}
-    for method in METHODS:
-        cfg = bsgd.BSGDConfig(budget=BUDGET, lambda_=LAMBDA, gamma=GAMMA, batch_size=1,
-                              method=method)
+    for name, knobs in BINARY.items():
+        cfg = bsgd.BSGDConfig(budget=BUDGET, lambda_=LAMBDA, gamma=GAMMA, batch_size=1, **knobs)
         table = cfg.table()
         table = None if table is None else table.to(dev)
-        st = bsgd.init_state(cfg, DIM, device=dev)
-        for i in range(WARM_STEPS):
-            st = bsgd.train_step(cfg, table, st, xs[i:i + 1], ys[i:i + 1])
+        st = bsgd.train_epoch(cfg, table, bsgd.init_state(cfg, DIM, device=dev), xs, ys,
+                              torch.arange(WARM_STEPS, device=dev), device=dev)
         torch.cuda.synchronize()
-        warm[method] = (cfg, table, st)
-    warm[CLASS_RUN] = _warm_class_run(dev)
+        warm[name] = (cfg, table, st)
+    class_data = _class_data(dev)
+    for name, knobs in CLASS_RUNS.items():
+        warm[name] = _warm_class_run(dev, knobs, class_data)
     op_inputs = _op_inputs(dev)
-    print(json.dumps({"ready": tree, "count": {m: w[2].count.tolist() for m, w in warm.items()}}),
-          flush=True)
     from repro_torch.core import multiclass as mc
     from repro_torch.kernels import ops
+    split = {}
+    for name in ("fused lookup-wd", "fused merge (c)", "fused multi-merge (d)"):
+        if name in BINARY:
+            cfg, table, st = warm[name]
+            rows, step_fn, data = 1, bsgd.train_step, (xs, ys)
+            start = WARM_STEPS
+        else:
+            cfg, table, st, *data = warm[name]
+            rows, step_fn = MC_BATCH, mc.train_step_multiclass
+            start = MC_WARM_STEPS * MC_BATCH
+        below = st._replace(count=st.count - rows)
+        split[name] = {case: _step_device_us(step_fn, cfg, table, state, data, start, rows)
+                       for case, state in (("at budget", st), ("below budget", below))}
+    print(json.dumps({"ready": tree, "decisions": {m: _decisions(w[2]) for m, w in warm.items()},
+                      "split_device_us": split}), flush=True)
     for line in sys.stdin:
         head, n = line.rsplit(" ", 1)
         kind, n = head.removeprefix("run "), int(n)
@@ -93,45 +129,83 @@ def worker(tree: str) -> None:
             for _ in range(n):
                 fn(*args, impl="cuda")
             res = {}
-        elif kind == CLASS_RUN:
+        elif kind in CLASS_RUNS:   # the epoch loop, as chip_smoke.py's runs train
             cfg, table, st, xm, ym = warm[kind]
-            for i in range(MC_WARM_STEPS, MC_WARM_STEPS + n):
-                sl = slice(i * MC_BATCH, (i + 1) * MC_BATCH)
-                st = mc.train_step_multiclass(cfg, table, st, xm[sl], ym[sl])
+            order = torch.arange(MC_WARM_STEPS * MC_BATCH, (MC_WARM_STEPS + n) * MC_BATCH,
+                                 device=dev)
+            st = mc.train_epoch_multiclass(cfg, table, st, xm, ym, order, device=dev)
             torch.cuda.synchronize()
-            res = {"n_merges": int(st.n_merges.sum()), "count": st.count.tolist()}
+            res = _decisions(st)
         else:
             cfg, table, st = warm[kind]
-            for i in range(WARM_STEPS, WARM_STEPS + n):
-                st = bsgd.train_step(cfg, table, st, xs[i:i + 1], ys[i:i + 1])
+            order = torch.arange(WARM_STEPS, WARM_STEPS + n, device=dev)
+            st = bsgd.train_epoch(cfg, table, st, xs, ys, order, device=dev)
             torch.cuda.synchronize()
-            res = {"n_merges": int(st.n_merges), "count": int(st.count)}
+            res = _decisions(st)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         print(json.dumps({"us_per_step": secs / n * 1e6, **res}), flush=True)
 
 
-def _warm_class_run(dev):
-    """Run (b) trained from a fresh state until every class is at its budget."""
+def _decisions(st) -> dict:
+    """A state's integer decisions: count, n_inserts and n_merges."""
+    return {f: getattr(st, f).tolist() for f in ("count", "n_inserts", "n_merges")}
+
+
+def _step_device_us(step_fn, cfg, table, state, data, start, rows):
+    """Mean device µs a ``train_step`` launch over ``SPLIT_STEPS`` steps from
+    ``state`` (the step function leaves its input as it was), each on the
+    next minibatch of ``rows`` rows from row ``start`` of ``data``; None if
+    the profiler reports no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    x, y = data
+
+    def steps():
+        for i in range(SPLIT_STEPS):
+            lo = start + i * rows
+            step_fn(cfg, table, state, x[lo:lo + rows], y[lo:lo + rows])
+        torch.cuda.synchronize()
+
+    steps()                                   # warm: allocations, the profiler's first window
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        steps()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if "train_step_kernel" in ev.key:
+            total += getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
+            count += ev.count
+    return total / count if count and total > 0 else None
+
+
+def _class_data(dev):
+    """The MNIST-width stand-in's training rows on the card, in run order."""
     import numpy as np
     import torch
-    from repro_torch.core import multiclass as mc
     from repro_torch.data import make_blobs_multiclass
 
-    cfg = mc.MulticlassSVMConfig.create(MC_CLASSES, budget=BUDGET, lambda_=LAMBDA,
-                                        gamma=2.0 ** -11, batch_size=MC_BATCH,
-                                        method="lookup-wd", use_kernel_cache=True,
-                                        maintenance="multi-merge", merge_batch=4)
     x, y = make_blobs_multiclass(np.random.default_rng(0), MC_TRAIN + MC_TEST, MC_DIM,
                                  MC_CLASSES, sep=0.12, noise=1.0)
     perm = torch.randperm(MC_TRAIN, generator=torch.Generator().manual_seed(0))
-    xs = torch.as_tensor(x[MC_TEST:])[perm].to(dev)
-    ys = torch.as_tensor(y[MC_TEST:]).long()[perm].to(dev)
+    return (torch.as_tensor(x[MC_TEST:])[perm].to(dev),
+            torch.as_tensor(y[MC_TEST:]).long()[perm].to(dev))
+
+
+def _warm_class_run(dev, knobs, data):
+    """A class-axis run's configuration trained from a fresh state until every
+    class is at its budget."""
+    import torch
+    from repro_torch.core import multiclass as mc
+
+    cfg = mc.MulticlassSVMConfig.create(MC_CLASSES, budget=BUDGET, lambda_=LAMBDA,
+                                        gamma=2.0 ** -11, batch_size=MC_BATCH,
+                                        method="lookup-wd", use_kernel_cache=True, **knobs)
+    xs, ys = data
     table = cfg.table().to(dev)
-    st = mc.init_multiclass_state(cfg, MC_DIM, device=dev)
-    for i in range(MC_WARM_STEPS):
-        sl = slice(i * MC_BATCH, (i + 1) * MC_BATCH)
-        st = mc.train_step_multiclass(cfg, table, st, xs[sl], ys[sl])
+    st = mc.train_epoch_multiclass(cfg, table, mc.init_multiclass_state(cfg, MC_DIM, device=dev),
+                                   xs, ys, torch.arange(MC_WARM_STEPS * MC_BATCH, device=dev),
+                                   device=dev)
     torch.cuda.synchronize()
     return cfg, table, st, xs, ys
 
@@ -177,6 +251,7 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--steps", type=int, default=1_000)
     ap.add_argument("--class-steps", type=int, default=50)
+    ap.add_argument("--fused-steps", type=int, default=500)
     ap.add_argument("--calls", type=int, default=2_000)
     ap.add_argument("--out", default=None)
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
@@ -189,22 +264,32 @@ def main() -> int:
     procs = [subprocess.Popen([sys.executable, __file__, "--tree", t, "--worker", t],
                               stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
              for t in args.tree]
+    same = {}
     try:
+        ready = []
         for t, p in zip(args.tree, procs):
-            print(f"worker {t}: {_reply(p)}", flush=True)
-        kinds = {**{m: args.steps for m in METHODS}, CLASS_RUN: args.class_steps,
+            ready.append(json.loads(_reply(p)))
+            print(f"worker {t}: {json.dumps(ready[-1])}", flush=True)
+        same["warm states"] = ready[0]["decisions"] == ready[1]["decisions"]
+        kinds = {**{m: args.steps for m in BINARY},
+                 **{r: args.class_steps if r == "multi-merge (b)" else args.fused_steps
+                    for r in CLASS_RUNS},
                  **{o: args.calls for o in OPS}}
         runs = {m: {t: [] for t in args.tree} for m in kinds}
         for k in range(args.pairs):
             order = (0, 1) if k % 2 == 0 else (1, 0)          # A B, B A, A B, ...
             for method, n in kinds.items():
+                ends = []
                 for w in order:
                     procs[w].stdin.write(f"{method} {n}\n" if method in OPS
                                          else f"run {method} {n}\n")
                     procs[w].stdin.flush()
                     res = json.loads(_reply(procs[w]))
-                    runs[method][args.tree[w]].append(res["us_per_step"])
-                    print(f"pair {k} {method} {args.tree[w]}: {json.dumps(res)}", flush=True)
+                    runs[method][args.tree[w]].append(res.pop("us_per_step"))
+                    ends.append(res)
+                    print(f"pair {k} {method} {args.tree[w]}: {runs[method][args.tree[w]][-1]} "
+                          f"us/step {json.dumps(res)}", flush=True)
+                same[method] = same.get(method, True) and ends[0] == ends[1]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -221,11 +306,14 @@ def main() -> int:
         print(f"{method}: {json.dumps({t: report[method]['summary'][t] for t in args.tree})}")
         print(f"{method}: second minus first, per pair: {json.dumps(_summary(diffs))}; "
               f"second slower in {report[method]['second_slower_in']} of {len(diffs)} pairs")
+    print(f"decisions (count, n_inserts, n_merges) equal between the trees: {json.dumps(same)}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(dict(steps=kinds, trees=args.tree, methods=report),
-                                             indent=1))
-    return 0
+        Path(args.out).write_text(json.dumps(dict(
+            steps=kinds, trees=args.tree, methods=report, decisions_equal=same,
+            split_device_us={t: r["split_device_us"] for t, r in zip(args.tree, ready)}),
+            indent=1))
+    return 0 if all(same.values()) else 1
 
 
 if __name__ == "__main__":
