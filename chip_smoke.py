@@ -84,6 +84,7 @@ the repository around it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -118,6 +119,14 @@ MC_RUNS = {"a": "merge_event engine", "b": "multi-merge", "c": "fused step, merg
 LOCKSTEP_STEPS = 1_000
 FUSED_PROFILE_STEPS = 1_000
 CHOOSE_LOCKSTEP_STEPS = 300
+# rbf_matrix's checked shapes (n, m, d): the binary path's margin and kappa
+# rows, decision values, run (a)'s margin rows (a minibatch of 8 against the
+# 10 x 508 class bank) and a minibatch of 32 against it, and three ragged
+# ones (3 and 12 rows pad rbf_thin's row count to 4 and 16)
+RBF_SHAPES = [(1, 501, 123), (6512, 501, 123), (8, 5080, 780), (32, 5080, 780), (3, 77, 5),
+              (12, 301, 50), (33, 17, 300)]
+# steps of phase 6's gss-precise window, from the gss epoch's state
+PRECISE_PROFILE_STEPS = 300
 
 
 def check(cond: bool, what: str) -> None:
@@ -214,16 +223,17 @@ def phase_build(_build):
                 print(f"  {name}: {line.strip()}")
 
 
-def phase_kernels(ops, ref, _build, table):
-    """Each kernel against its plain version; returns the main-shape records."""
+def check_rbf(ops, ref, shapes, gen):
+    """rbf_matrix against its plain version at each (n, m, d) of ``shapes``, fp32
+    and bf16 operands, with the time a call of the kernel and of the plain
+    version, the device time a launch (fp32) and the bound; returns the
+    record of the binary path's shape (1 x 501 x 123 fp32) when it is one of
+    them."""
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(SEED)
     gamma = 2.0 ** -7
     records = {}
-
-    # rbf_matrix: margin / kappa rows (1 x 501) and decision values (6512 x 501)
-    rbf_tol = 1e-5   # fp32 sums of d products in another order, times gamma
-    for (n, m, d) in [(1, 501, 123), (6512, 501, 123), (3, 77, 5), (33, 17, 300)]:
+    tol = 1e-5   # fp32 sums of d products in another order, times gamma
+    for (n, m, d) in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(n, d, generator=gen).to(dev, dtype)
             y = torch.randn(m, d, generator=gen).to(dev, dtype)
@@ -232,21 +242,61 @@ def phase_kernels(ops, ref, _build, table):
             err = (got - want).abs().max().item()
             k_ms = time_call(lambda: ops.rbf_matrix(x, y, gamma, impl="cuda"))
             p_ms = time_call(lambda: ref.rbf_matrix(x, y, gamma))
-            nb = x.element_size() * (n + m) * d + 4 * n * m
-            b_ms, b_by = bound_ms(nb, 2.0 * n * m * d + 2.0 * (n + m) * d + 5.0 * n * m)
-            print(f"rbf_matrix {n}x{m}x{d} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol {rbf_tol}) "
-                  f"kernel {k_ms * 1e3:.2f} us plain {p_ms * 1e3:.2f} us bound {b_ms * 1e3:.4f} us "
-                  f"({b_by})")
-            check(err <= rbf_tol, f"rbf_matrix {n}x{m}x{d} {dtype} error {err}")
+            b_ms, b_by = bound_ms(*_rbf_work(n, m, d, x.element_size()))
+            line = (f"rbf_matrix {n}x{m}x{d} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol {tol}) "
+                    f"kernel {k_ms * 1e3:.2f} us plain {p_ms * 1e3:.2f} us bound "
+                    f"{b_ms * 1e3:.4f} us ({b_by})")
+            dm = None
+            if dtype == torch.float32:
+                dm = device_ms(lambda: ops.rbf_matrix(x, y, gamma, impl="cuda"), "rbf_")
+                line += f" device {us(dm)}"
+            print(line)
+            check(err <= tol, f"rbf_matrix {n}x{m}x{d} {dtype} error {err}")
             if (n, m, d) == (1, 501, 123) and dtype == torch.float32:
-                records["rbf_matrix"] = dict(
-                    max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=None,
-                    device_ms=device_ms(lambda: ops.rbf_matrix(x, y, gamma, impl="cuda"),
-                                        "rbf_thin"))
-            if (n, m, d) == (6512, 501, 123) and dtype == torch.float32:
-                dm = device_ms(lambda: ops.rbf_matrix(x, y, gamma, impl="cuda"), "rbf_tiled")
-                print(f"  rbf_tiled device time {us(dm)}")
+                records["rbf_matrix"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                                             bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                                             device_ms=dm)
+    return records
+
+
+def rbf_cutover(ref, gen):
+    """Device time of rbf_matrix's two kernels at n = 8, 16 and 32 rows
+    against run (a)'s class bank (m = 5,080, d = 780, fp32), each forced
+    (``path=``) and held to the plain version; the rule sends n <= THIN_ROWS
+    to rbf_thin.  The two sum in different orders, so moving the cutover
+    moves the bits of the rows it moves."""
+    from repro_torch.kernels import rbf_kernel
+    dev = torch.device("cuda")
+    m, d, gamma = MC_CLASSES * (MC_BUDGET + MC_BATCH), MC_DIM, MC_GAMMA
+    y = torch.randn(m, d, generator=gen).to(dev)
+    for n in (8, 16, 32):
+        x = torch.randn(n, d, generator=gen).to(dev)
+        want = ref.rbf_matrix(x, y, gamma)
+        line = f"rbf_matrix cutover n={n} m={m} d={d}:"
+        for path in ("thin", "tiled"):
+            call = lambda: rbf_kernel.rbf_matrix_cuda(x, y, gamma, path=path)
+            err = (call() - want).abs().max().item()
+            check(err <= 1e-5, f"rbf_matrix path={path} n={n} error {err}")
+            line += f" {path} device {us(device_ms(call, 'rbf_'))} (err {err:.1e});"
+        b_ms, b_by = bound_ms(*_rbf_work(n, m, d, 4))
+        print(f"{line} bound {b_ms * 1e3:.4f} us ({b_by}); the rule takes "
+              f"{'thin' if n <= rbf_kernel.THIN_ROWS else 'tiled'}")
+
+
+def _rbf_work(n, m, d, elem):
+    """(bytes, operations) of one rbf_matrix call: each operand read once, the
+    output written once; two a multiply-add of x.y and of the norms, five an
+    output (the epilogue)."""
+    return (elem * (n + m) * d + 4 * n * m,
+            2.0 * n * m * d + 2.0 * (n + m) * d + 5.0 * n * m)
+
+
+def phase_kernels(ops, ref, _build, table):
+    """Each kernel against its plain version; returns the main-shape records."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED)
+    records = check_rbf(ops, ref, RBF_SHAPES, gen)
+    rbf_cutover(ref, gen)
 
     # merge_scores: 501 candidates against the 400 x 400 table
     wd_table = table.wd_table.to(dev)
@@ -326,6 +376,7 @@ def phase_kernels(ops, ref, _build, table):
                 library_ms=None,
                 device_ms=device_ms(lambda: ops.gss_solve(m_in, k_in, n_iters=10, impl="cuda"),
                                     "gss_kernel"))
+    records["gss_pick"] = phase_gss_pick(ops, ref, gen)
     return records
 
 
@@ -422,6 +473,72 @@ def phase_pick(ops, ref, table, gen):
                           bound_ms=b_ms, bound_by=b_by, library_ms=None, device_ms=dm)
         print(line)
         check(equal, f"merge_pick {label} against its plain version")
+    return record
+
+
+def _gss_pick_bound(alpha, kappa, count, i_min, a_min, n_iters):
+    """Least time of one gss_pick call on these inputs: every input once and
+    the three outputs; per valid candidate its coordinates (~6 operations),
+    ``n_iters`` bracket steps of two objectives (~30, as ``gss``'s bound
+    counts them) and its alpha_z and WD (~25), and 4 a candidate (mask,
+    argmin)."""
+    r, s = alpha.shape
+    idx = torch.arange(s, device=alpha.device)
+    valid = (idx < count[:, None]) & (alpha * a_min[:, None] > 0) & (idx != i_min[:, None])
+    n_bytes = 2 * 4 * r * s + r * (4 + 8 + 4) + r * (8 + 4 + 4)
+    return bound_ms(n_bytes, (31.0 + 30.0 * n_iters) * int(valid.sum()) + 4.0 * r * s)
+
+
+def phase_gss_pick(ops, ref, gen):
+    """gss_pick against its plain version on the card, bit for bit, at 10
+    (gss) and 48 (gss-precise) bracket steps: the binary path's shape (one
+    row of 501 without a row axis), the class axis's rows (C = 10, S = 508),
+    a ragged shape, exact WD ties and rows with no valid candidate; then its
+    timing at the binary path's shape, beside merge_pick's."""
+    dev = torch.device("cuda")
+    record = None
+    for n_iters in (10, 48):
+        for label, r, s, case in [("binary path", 1, 501, "random"),
+                                  ("class rows", MC_CLASSES, MC_BUDGET + MC_BATCH, "random"),
+                                  ("ragged", 3, 37, "random"), ("ties", 4, 64, "ties"),
+                                  ("all-invalid", 2, 40, "all-invalid"), ("s=1", 2, 1, "random")]:
+            alpha, kappa, count, i_min, a_min = _pick_state(gen, r, s, dev, case)
+            if label == "binary path":       # the binary event's form: no row axis
+                alpha, kappa, count = alpha[0], kappa[0], count[0]
+            got = ops.gss_pick(alpha, kappa, count, i_min, a_min, n_iters=n_iters, impl="cuda")
+            want = ops.gss_pick(alpha, kappa, count, i_min, a_min, n_iters=n_iters, impl="ref")
+            j, wd, h = got
+            none = want[1] >= ref.NO_PARTNER
+            equal = (bool(torch.equal(j, want[0])) and bool(torch.equal(wd[~none], want[1][~none]))
+                     and bool(torch.equal(h, want[2])) and bool((wd[none] >= ref.NO_PARTNER).all()))
+            err = max((wd - want[1])[~none].abs().max().item() if bool((~none).any()) else 0.0,
+                      (h - want[2]).abs().max().item())
+            line = (f"gss_pick n_iters={n_iters} {label} R={r} s={s}: bit-equal {equal} (j_star, "
+                    f"wd_j where a partner exists, h_j; removal rows {int(none.sum())}/"
+                    f"{none.numel()}) j_star {j[:4].tolist()}")
+            if case == "ties":
+                line += f" ties to the lower slot {bool((j == 5).all())}"
+                check(bool((j == 5).all()), "gss_pick: an exact tie not broken to the lower slot")
+            if case == "all-invalid" or s == 1:
+                check(bool(none.all()) and bool((j == 0).all()),
+                      f"gss_pick {label}: a row without candidates must pick slot 0 and remove")
+            if label == "binary path":
+                call = lambda: ops.gss_pick(alpha, kappa, count, i_min, a_min, n_iters=n_iters,
+                                            impl="cuda")
+                k_ms = time_call(call)
+                p_ms = time_call(lambda: ops.gss_pick(alpha, kappa, count, i_min, a_min,
+                                                      n_iters=n_iters, impl="ref"), calls=20)
+                dm = device_ms(call, "gss_pick_kernel")
+                b_ms, b_by = _gss_pick_bound(alpha[None], kappa[None], count.reshape(1), i_min,
+                                             a_min, n_iters)
+                line += (f" kernel {k_ms * 1e3:.2f} us (device {us(dm)}) plain "
+                         f"{p_ms * 1e3:.2f} us bound {b_ms * 1e3:.4f} us ({b_by}); library "
+                         "call: none")
+                if n_iters == 10:
+                    record = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                  bound_by=b_by, library_ms=None, device_ms=dm)
+            print(line)
+            check(equal, f"gss_pick n_iters={n_iters} {label} against its plain version")
     return record
 
 
@@ -532,7 +649,11 @@ def phase_main(core, ops, data):
             check(launches["merge_pick"] == steps, f"lookup-wd: merge_pick launched "
                   f"{launches['merge_pick']} times in {steps} steps")
         else:
-            check(launches["gss"] > 0, "gss: gss never launched")
+            # one event a step, its whole choice one gss_pick launch
+            check(launches["gss_pick"] == steps, f"gss: gss_pick launched "
+                  f"{launches['gss_pick']} times in {steps} steps")
+            check(launches["gss"] == 0, f"gss: gss launched {launches['gss']} times; the path "
+                  "now runs gss_pick")
         # the lookup-wd event's choice is merge_pick: merge_scores runs on neither path
         check(launches["merge_scores"] == 0, f"{method}: merge_scores launched "
               f"{launches['merge_scores']} times; the path now runs merge_pick")
@@ -575,20 +696,23 @@ def phase_replay(core, data):
     check(gap <= 0.01, f"card and CPU replays differ in accuracy by {gap}")
 
 
-def phase_profile(core, run):
-    """Device busy time per step over PROFILE_STEPS lookup-wd steps."""
+def phase_profile(core, run, label, steps: int = PROFILE_STEPS, **knobs):
+    """Device busy time per step over ``steps`` binary steps from the state of
+    ``run`` (a phase-4 epoch), its configuration changed by ``knobs``."""
     _, st, cfg = run
+    cfg = dataclasses.replace(cfg, **knobs)
     rng = np.random.default_rng(SEED + 1)
-    xs = torch.as_tensor(rng.standard_normal((PROFILE_STEPS, DIM)).astype(np.float32)).cuda()
-    ys = torch.as_tensor(np.where(rng.random(PROFILE_STEPS) < 0.5, 1.0, -1.0)
+    xs = torch.as_tensor(rng.standard_normal((steps, DIM)).astype(np.float32)).cuda()
+    ys = torch.as_tensor(np.where(rng.random(steps) < 0.5, 1.0, -1.0)
                          .astype(np.float32)).cuda()
-    table = cfg.table().to("cuda")
+    table = cfg.table()
+    table = None if table is None else table.to("cuda")
     box = [st]
 
     def step(i):
         box[0] = core.train_step(cfg, table, box[0], xs[i:i + 1], ys[i:i + 1])
 
-    _profile(step, PROFILE_STEPS, "binary lookup-wd")
+    _profile(step, steps, label)
 
 
 def _event_state(gen, c, s, d, sv_dtype, dev, budget, removal_class=None):
@@ -822,16 +946,19 @@ def _choose_bound(alpha, kappa, a_idx, a_min, count, budget, tab):
 
 def phase_choose(ops, ref, tab, gen):
     """multi_merge_choose against its plain version on the card, bit for bit:
-    run (b)'s shape (C = 10, P = 4, s = 508), a ragged shape, P = 1 and P = 8,
-    exact score ties and a removal fallback, each with a class below the
-    budget (which executes nothing); then its timing at run (b)'s shape."""
+    run (b)'s shape (C = 10, P = 4, s = 508), a ragged shape, P = 1, P = 8
+    and P = 64 (merge_batch 64, above the 32 pairs the kernel once held, at
+    an excess of up to 68), exact score ties and a removal fallback, each
+    with a class below the budget (which executes nothing); then its timing
+    at run (b)'s shape."""
     s_mc = MC_BUDGET + MC_BATCH
     record = None
     for label, c, p, s, budget, case in [
             ("run (b)", MC_CLASSES, 4, s_mc, MC_BUDGET, "random"),
             ("ragged", 3, 4, 37, 30, "random"), ("P=1", 2, 1, 129, 120, "random"),
             ("P=8", 4, 8, 200, 190, "random"), ("ties", 3, 4, 64, 56, "ties"),
-            ("removal", 3, 4, 64, 56, "removal")]:
+            ("removal", 3, 4, 64, 56, "removal"),
+            ("merge_batch 64", MC_CLASSES, 64, s_mc, MC_BUDGET - 60, "random")]:
         args = _choose_state(gen, c, p, s, budget, "cuda", case)
         got = ops.multi_merge_choose(*args, tab, impl="cuda")
         want = ops.multi_merge_choose(*args, tab, impl="ref")
@@ -1505,15 +1632,26 @@ def phase_step_kernel(ops, ref, table):
         ("binary", 1, BUDGET, DIM, 1, BUDGET, 2.0 ** -7, 1e-5, torch.float32, "merge", ks, None),
         ("binary below", 1, BUDGET, DIM, 1, BUDGET - 100, 2.0 ** -7, 1e-5, torch.float32,
          "merge", (1,), None),
+        # merge_batch 64: a budget 60 below the class axis's, so that a round
+        # executes more than 32 pairs (K = 1 cannot hold 64 pairs' rows)
+        ("merge_batch 64", MC_CLASSES, MC_BUDGET - 60, MC_DIM, MC_BATCH, MC_BUDGET - 2, MC_GAMMA,
+         MC_LAMBDA, torch.float32, "multi-merge", (2, 8, 16), None),
+        # a minibatch of 128 rows at d = 780: staged eight rows at a time
+        # (K = 1 cannot hold its 128 x 628 margin rows)
+        ("batch 128", MC_CLASSES, MC_BUDGET, MC_DIM, 128, MC_BUDGET - 2, MC_GAMMA, MC_LAMBDA,
+         torch.float32, "merge", (2, 8, 16), None),
     ]
+    # slots a class, where a case's budget is not the class axis's
+    slots = {"merge_batch 64": MC_BUDGET + MC_BATCH}
     records = {}
     for label, c, budget, d, b, count, gamma, lam, sv_dtype, maint, case_ks, removal in cases:
-        s = budget + b
+        s = slots.get(label, budget + b)
+        p = 64 if label == "merge_batch 64" else 4
         kw = dict(budget=budget, lambda_=lam, gamma=gamma, batch_size=b, maintenance=maint,
-                  merge_batch=4)
+                  merge_batch=p)
         args = _step_state(gen, c, s, d, b, budget, count, gamma, sv_dtype, dev, removal)
         multi = maint == "multi-merge"
-        chosen = ts.cluster_size(sv_dtype == torch.bfloat16, c, s, d, b, multi, 4 if multi else 1)
+        chosen = ts.cluster_size(sv_dtype == torch.bfloat16, c, s, d, b, multi, p if multi else 1)
         want = [t.clone() for t in args[:7]]
         w_out = ops.train_step(*want, *args[7:], tab, impl="ref", **kw)
         outs = {}
@@ -1523,8 +1661,9 @@ def phase_step_kernel(ops, ref, table):
                                          **kw)
         torch.cuda.synchronize()
         g_out = outs[chosen]
-        same_k = {k: all(bool(torch.equal(x, y)) for x, y in zip(o, outs[1]))
-                  for k, o in outs.items() if k != 1 and 1 in outs}
+        base = min(outs)    # K = 1 where one block holds the case
+        same_k = {k: all(bool(torch.equal(x, y)) for x, y in zip(o, outs[base]))
+                  for k, o in outs.items() if k != base}
         ints_equal = all(bool(torch.equal(g_out[i], w_out[i])) for i in (3, 4, 5, 6))
         e_sv = (g_out[0].float() - w_out[0].float()).abs().max().item()
         e_al = (g_out[1] - w_out[1]).abs().max().item()
@@ -1539,9 +1678,14 @@ def phase_step_kernel(ops, ref, table):
                 f"K={chosen}: "
                 f"integer state equal {ints_equal} (events {events}, inserts "
                 f"{int(w_out[5].sum())}) max err sv_x {e_sv:.3e} (tol {sv_tol:.3e}) alpha "
-                f"{e_al:.3e} kmat {e_km:.3e} (rtol 1e-5, atol 5e-5); bit-equal to K=1 at K "
+                f"{e_al:.3e} kmat {e_km:.3e} (rtol 1e-5, atol 5e-5); bit-equal to K={base} at K "
                 f"{same_k}")
-        check(all(same_k.values()), f"train_step {label} {maint}: a cluster size parts from K=1")
+        check(all(same_k.values()), f"train_step {label} {maint}: a cluster size parts from "
+              f"K={base}")
+        if label == "merge_batch 64":
+            pairs = int((args[3] + w_out[5] - args[5] - budget).max())
+            line += f"; largest excess {pairs} (pairs a first round may execute)"
+            check(pairs > 32, "train_step merge_batch 64: no round can execute more than 32 pairs")
         if label.startswith("below") or label == "binary below":
             check(events == 0, f"train_step {label}: an event ran below the budget")
         else:
@@ -1789,7 +1933,10 @@ def main() -> int:
     with Phase("5 card vs CPU replay"):
         phase_replay(core, data)
     with Phase("6 profile"):
-        phase_profile(core, runs["lookup-wd"])
+        phase_profile(core, runs["lookup-wd"], "binary lookup-wd")
+        phase_profile(core, runs["gss"], "binary gss")
+        phase_profile(core, runs["gss"], "binary gss-precise (from the gss state)",
+                      PRECISE_PROFILE_STEPS, method="gss-precise")
     with Phase("11 binary fused run"):
         binary_fused = phase_binary_fused(core, ops, data, runs["lookup-wd"][0]["accuracy"])
     with Phase("class-axis data"):
@@ -1814,7 +1961,8 @@ def main() -> int:
         phase_choose_lockstep(mc, budget_mod, mc_data, mc_runs["b"])
 
     # launches on the main paths: the binary runs of phase 4 (rbf_matrix,
-    # merge_pick, gss, and merge_scores, now 0) and the class-axis runs
+    # merge_pick, gss_pick, and merge_scores and gss, now 0) and the
+    # class-axis runs
     for name in ("merge_event", "merge_event_rounds"):
         counts[name] = mc_runs["a"][0]["launches"][name]
     for name in ("multi_merge_scores", "multi_merge_choose"):
@@ -1828,6 +1976,7 @@ def main() -> int:
         "merge_pick": ("src/repro_torch/csrc/merge_lookup.cu",
                        "src/repro/kernels/merge_lookup.py:65"),
         "gss": ("src/repro_torch/csrc/gss.cu", "src/repro/kernels/gss.py:48"),
+        "gss_pick": ("src/repro_torch/csrc/gss.cu", "src/repro/kernels/gss.py:48"),
         "multi_merge_scores": ("src/repro_torch/csrc/merge_multi.cu",
                                "src/repro/kernels/merge_multi.py:68"),
         "multi_merge_choose": ("src/repro_torch/csrc/merge_multi.cu",

@@ -2,10 +2,11 @@
 
 PyTorch counterpart of ``repro.core.budget``.  The SV set lives in
 fixed-size tensors (``slots`` rows) with a ``count`` watermark; inactive
-slots are masked.  Nothing here reads a tensor back to the host: every choice
-(fixed partners, merge partners, merge or removal fallback, whether an event
-runs at all) is a masked ``torch.where`` or scatter on the device, so a
-training step never waits for the card.
+slots are masked.  Every choice (fixed partners, merge partners, merge or
+removal fallback, whether an event runs at all) is a masked ``torch.where``
+or scatter on the device, so a training step never waits for the card; the
+one host read is the drain form of the maintenance entry points
+(``unroll=0``, their default), which reads the largest excess once.
 
 Every strategy is written once, for a leading class axis: ``sv_x`` (C, S, D),
 ``alpha`` (C, S), ``kmat`` (C, S, S) or None, ``count`` (C,).  The binary
@@ -17,11 +18,13 @@ host-bound step ~10%); the one-vs-rest engine runs all classes in one pass
 
 ``method`` says how candidates are scored (paper section 4):
   ``gss`` / ``gss-precise`` — golden section search at eps 1e-2 / 1e-10
-  (the CUDA ``gss`` kernel on the card); ``lookup-h`` — the h table, WD
-  exact (the CUDA ``merge_scores`` kernel on the card); ``lookup-wd`` — the
-  WD table, h read at the winner only (an event's whole choice is one CUDA
-  ``merge_pick`` launch on the card, a multi-merge event's scoring and greedy
-  pair choice one ``multi_merge_choose`` launch).
+  (an event's whole choice is one CUDA ``gss_pick`` launch on the card, a
+  multi-merge event's scoring the CUDA ``gss`` kernel); ``lookup-h`` — the
+  h table, WD exact (the CUDA ``merge_scores`` kernel on the card);
+  ``lookup-wd`` — the WD table, h read at the winner only (an event's whole
+  choice is one CUDA ``merge_pick`` launch on the card, a multi-merge
+  event's scoring and greedy pair choice one ``multi_merge_choose``
+  launch).
 
 ``strategy`` says what one event does: ``merge`` (paper Alg. 1),
 ``multi-merge`` (the P smallest-|alpha| SVs merge with their best partners
@@ -84,13 +87,19 @@ def _scores(alpha, kappa, a_min, valid, method: str, table, *, impl: str):
         raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
     a_col = a_min if kappa.dim() == 1 else a_min[..., None]
     if method in ("gss", "gss-precise"):
-        eps = merge_math.EPS_STANDARD if method == "gss" else merge_math.EPS_PRECISE
         m, kap = kref.merge_coords(a_col, alpha_b, kappa)
-        h = kops.gss_solve(m, kap, n_iters=merge_math.gss_num_iters(eps), impl=impl)
+        h = kops.gss_solve(m, kap, n_iters=_gss_iters(method), impl=impl)
     kap = torch.clamp(kappa, 0.0, 1.0)
     a_z = merge_math.merge_alpha_z(a_col, alpha_b, kap, h)
     wd = merge_math.weight_degradation(a_col, alpha_b, kap, a_z)
     return torch.where(valid, wd, torch.inf), h
+
+
+def _gss_iters(method: str) -> int:
+    """Bracket steps of the runtime search: 10 for ``gss`` (eps 1e-2), 48 for
+    ``gss-precise`` (eps 1e-10)."""
+    eps = merge_math.EPS_STANDARD if method == "gss" else merge_math.EPS_PRECISE
+    return merge_math.gss_num_iters(eps)
 
 
 def candidate_scores(alpha, kappa_row, i_min, valid, method: str,
@@ -129,10 +138,14 @@ def _merge_once_binary(sv_x, alpha, count, gamma, method, table, *, kappa_row=No
     kappa_row = kappa_row.to(alpha.dtype)
 
     # 3. score the same-sign candidates, pick the best; lookup-wd reads the
-    #    h table at the winner only, in the same pass (one launch on the card)
+    #    h table at the winner only, in the same pass, and gss searches h*
+    #    candidate by candidate (each one launch on the card)
     if method == "lookup-wd":
         j_star, wd_j, h_j = kops.merge_pick(alpha, kappa_row, count, i_min, a_min, table,
                                             impl=impl)
+    elif method in ("gss", "gss-precise"):
+        j_star, wd_j, h_j = kops.gss_pick(alpha, kappa_row, count, i_min, a_min,
+                                          n_iters=_gss_iters(method), impl=impl)
     else:
         valid = active & (alpha * a_min > 0) & (idx != i_min)
         wd, h = _scores(alpha, kappa_row, a_min, valid, method, table, impl=impl)
@@ -193,10 +206,14 @@ def _merge_once(sv_x, alpha, kmat, count, gamma, method, table, *, kappa_row=Non
     kappa_row = kappa_row.to(alpha.dtype)
 
     # 3. score the same-sign candidates, pick the best; lookup-wd reads the
-    #    h table at the winner only, in the same pass (one launch on the card)
+    #    h table at the winner only, in the same pass, and gss searches h*
+    #    candidate by candidate (each one launch on the card)
     if method == "lookup-wd":
         j_star, wd_j, h_j = kops.merge_pick(alpha, kappa_row, count, i_min, a_min, table,
                                             impl=impl)
+    elif method in ("gss", "gss-precise"):
+        j_star, wd_j, h_j = kops.gss_pick(alpha, kappa_row, count, i_min, a_min,
+                                          n_iters=_gss_iters(method), impl=impl)
     else:
         valid = active & (alpha * a_min[:, None] > 0) & (idx != i_min[:, None])
         wd, h = _scores(alpha, kappa_row, a_min, valid, method, table, impl=impl)
@@ -462,10 +479,12 @@ def seed_codebook(state, centroids, gamma, *, impl: str = "auto"):
 
 def run_maintenance_stacked(sv_x, alpha, kmat, count, n_events, gamma, table, *, budget: int,
                             strategy: str = "merge", method: str = "lookup-wd",
-                            merge_batch: int = 4, impl: str = "auto", unroll: int = 1):
+                            merge_batch: int = 4, impl: str = "auto", unroll: int = 0):
     """``run_maintenance`` for every class of a stacked state at once (the
     reference's ``jax.vmap`` of it): sv_x (C, S, D), alpha (C, S), kmat
-    (C, S, S) or None, count and n_events (C,)."""
+    (C, S, S) or None, count and n_events (C,).  ``unroll`` as in
+    ``run_maintenance``; the drain (``unroll=0``) runs as many masked events
+    as the largest class excess."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; expected one of {STRATEGIES}")
     over = count > budget
@@ -477,9 +496,7 @@ def run_maintenance_stacked(sv_x, alpha, kmat, count, n_events, gamma, table, *,
               "quantized": _quantized_all}[strategy]
         sv_x, alpha, kmat, count = fn(sv_x, alpha, kmat, count, budget)
         return sv_x, alpha, kmat, count, n_events + over.to(n_events.dtype)
-    if unroll < 1:
-        raise ValueError(f"unroll={unroll} < 1")
-    for _ in range(unroll):
+    for _ in range(_events(count, budget, unroll)):
         over = count > budget
         if strategy == "merge":
             sv_x, alpha, kmat, count, _ = _merge_once(sv_x, alpha, kmat, count, gamma, method,
@@ -491,27 +508,40 @@ def run_maintenance_stacked(sv_x, alpha, kmat, count, n_events, gamma, table, *,
     return sv_x, alpha, kmat, count, n_events
 
 
+def _events(count, budget: int, unroll: int) -> int:
+    """The masked events (rounds) a maintenance call runs: ``unroll``, or for
+    the drain (``unroll=0``) the largest excess ``count - budget``, which is
+    read from the card (the drain's one host sync).  Every executed event
+    lowers ``count`` by at least one, so that many reach the budget, and a
+    masked event past it changes nothing: a drain of e events equals
+    ``unroll=e`` bit for bit."""
+    if unroll < 0:
+        raise ValueError(f"unroll={unroll} < 0")
+    return unroll or int(torch.clamp(count - budget, min=0).max())
+
+
 def run_maintenance(sv_x, alpha, kmat, count, n_events, gamma, table, *, budget: int,
                     strategy: str = "merge", method: str = "lookup-wd", merge_batch: int = 4,
-                    impl: str = "auto", unroll: int = 1):
-    """Budget maintenance of a binary state until ``count <= budget``, without
-    a host sync.
+                    impl: str = "auto", unroll: int = 0):
+    """Budget maintenance of a binary state until ``count <= budget``.
 
     ``kmat`` is the (S, S) kernel cache, or None to recompute kappa rows per
     event; it is kept consistent through merges and compaction.  ``merge``
-    and ``multi-merge`` run exactly ``unroll`` events, each masked to a
-    no-op once ``count <= budget`` (the reference's ``unroll`` form): the
-    caller guarantees the excess never exceeds ``unroll``, which holds for
-    ``unroll = batch_size`` since one step inserts at most ``batch_size``
-    rows and every event lowers ``count`` by at least one.  The removal
-    strategies drop the whole excess in one pass.  Returns ``(sv_x, alpha,
+    and ``multi-merge`` run events masked to a no-op once ``count <=
+    budget``: by default (``unroll=0``, the reference's while loop) as many
+    as the excess ``count - budget``, which costs one host read of
+    ``count``; with ``unroll > 0`` exactly ``unroll`` of them and no host
+    sync (the reference's ``unroll`` form), where the caller guarantees the
+    excess never exceeds ``unroll``.  The training step passes ``unroll =
+    batch_size``: one step inserts at most ``batch_size`` rows and every
+    event lowers ``count`` by at least one, so there it reaches the state
+    the drain does.  The removal strategies drop the whole excess in one
+    pass.  Returns ``(sv_x, alpha,
     kmat, count, n_events)``, ``n_events`` +1 per executed event.  Uncached
     ``merge`` runs the binary event (``_merge_once_binary``); every other
     case runs the class-axis code with C = 1."""
     if strategy == "merge" and kmat is None:
-        if unroll < 1:
-            raise ValueError(f"unroll={unroll} < 1")
-        for _ in range(unroll):
+        for _ in range(_events(count, budget, unroll)):
             over = count > budget
             sv_x, alpha, count, _ = _merge_once_binary(sv_x, alpha, count, gamma, method, table,
                                                        execute=over, impl=impl)
@@ -527,20 +557,23 @@ def run_maintenance(sv_x, alpha, kmat, count, n_events, gamma, table, *, budget:
 
 
 def run_maintenance_classes(sv_x, alpha, kmat, count, n_events, table, *, budget: int,
-                            impl: str = "auto", unroll: int = 1):
+                            impl: str = "auto", unroll: int = 0):
     """Budget maintenance for a stacked class axis as fused event rounds.
 
-    The ``unroll`` rounds are ONE ``merge_event_rounds`` launch in which, each
-    round, every class still over budget runs a whole Lookup-WD merge event
-    and the other classes are not touched; the rounds are masked on the
-    device, so no host sync decides how many run (one insert minibatch
-    bounds the excess by ``batch_size``, the caller's ``unroll``).  With no class over budget the
-    state comes back bitwise unchanged.  The cache is required: the event
+    The rounds are ONE ``merge_event_rounds`` launch in which, each round,
+    every class still over budget runs a whole Lookup-WD merge event and the
+    other classes are not touched.  By default (``unroll=0``, the
+    reference's drain) the launch runs as many rounds as the largest class
+    excess, read from the card once (a host sync); ``unroll > 0`` runs that
+    many masked rounds with no sync (one insert minibatch bounds the excess
+    by ``batch_size``, the training step's ``unroll``, which then reaches
+    the drain's state).  With no class over budget the state comes back
+    bitwise unchanged.  The cache is required: the event
     reads its kappa rows from it.  With C = 1 this is the single-class
     engine (``_merge_once`` off the cache), whose decisions the event's are
     pinned to.  Returns ``(sv_x, alpha, kmat, count, n_events)``; the inputs
     are not modified (``event_rounds_`` is the form that takes them over)."""
-    _check_event_engine(kmat, table, unroll)
+    _check_event_engine(kmat, table)
     if sv_x.shape[0] == 1:
         return run_maintenance_stacked(sv_x, alpha, kmat, count, n_events, 0.0, table,
                                        budget=budget, strategy="merge", method="lookup-wd",
@@ -553,26 +586,29 @@ def run_maintenance_classes(sv_x, alpha, kmat, count, n_events, table, *, budget
 
 
 def event_rounds_(sv_x, alpha, kmat, count, n_events, table, *, budget: int,
-                  impl: str = "auto", unroll: int = 1):
+                  impl: str = "auto", unroll: int = 0):
     """``run_maintenance_classes`` on operands the caller hands over: ``sv_x``,
     ``alpha`` and ``kmat`` are updated IN PLACE (each first made contiguous,
     which copies only one that is not) and returned with the new ``count``
     and ``n_events``.  For a caller whose operands are fresh tensors of its
-    own, such as the insert half of a training step, this saves the copies."""
-    _check_event_engine(kmat, table, unroll)
+    own, such as the insert half of a training step, this saves the copies.
+    ``unroll`` as in ``run_maintenance_classes`` (0 drains, with one host
+    read of ``count``)."""
+    _check_event_engine(kmat, table)
+    rounds = _events(count, budget, unroll)
     sv_x, alpha, kmat = sv_x.contiguous(), alpha.contiguous(), kmat.contiguous()
     # the rounds update count and n_events in place too: on a copy (one
     # launch for both), since the caller's counters may be its previous state's
     count, n_events = torch.stack((count, n_events))
-    return kops.merge_event_rounds(sv_x, alpha, kmat, count, n_events, table, rounds=unroll,
+    if rounds == 0:
+        return sv_x, alpha, kmat, count, n_events
+    return kops.merge_event_rounds(sv_x, alpha, kmat, count, n_events, table, rounds=rounds,
                                    budget=budget, impl=impl)
 
 
-def _check_event_engine(kmat, table, unroll: int) -> None:
+def _check_event_engine(kmat, table) -> None:
     if kmat is None:
         raise ValueError("run_maintenance_classes needs the kernel cache "
                          "(use_kernel_cache=True): the fused event reads its kappa rows from kmat")
     if table is None:
         raise ValueError("run_maintenance_classes scores with Lookup-WD and needs the table")
-    if unroll < 1:
-        raise ValueError(f"unroll={unroll} < 1")

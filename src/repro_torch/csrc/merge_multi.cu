@@ -76,7 +76,8 @@ __global__ void multi_merge_scores_kernel(const float* __restrict__ alpha, int r
 // cache rows, a_idx/a_min (C, p) the fixed partners (the p smallest active
 // |alpha|, cheapest first), count (C,).  Writes the greedy choice (b_idx,
 // merged, executed) and h at each pair's winner, (C, p) each.  Dynamic
-// shared memory: the (p, s) scores.
+// shared memory: the pair lists (PairChoice, sized by p), then the (p, s)
+// scores.
 __global__ void __launch_bounds__(THREADS) multi_merge_choose_kernel(
     const float* __restrict__ alpha, const float* __restrict__ kappa,
     const long long* __restrict__ a_idx, const float* __restrict__ a_min,
@@ -84,7 +85,7 @@ __global__ void __launch_bounds__(THREADS) multi_merge_choose_kernel(
     const float* __restrict__ wd_table, int g0, int g1, int p, int s,
     long long* __restrict__ b_out, bool* __restrict__ merged_out,
     bool* __restrict__ exec_out, float* __restrict__ h_out) {
-  extern __shared__ float wd[];
+  extern __shared__ float4 smem_mc[];
   __shared__ PairChoice ch;
   __shared__ Reduce rd;
   const Part pt = make_part(1, s, 1);   // the whole class in one block
@@ -92,6 +93,10 @@ __global__ void __launch_bounds__(THREADS) multi_merge_choose_kernel(
   const int c = blockIdx.x;
   const float* al = alpha + (size_t)c * s;
   const float* kap = kappa + (size_t)c * p * s;
+  char* base = reinterpret_cast<char*>(smem_mc);
+  float* wd = reinterpret_cast<float*>(base + pair_choice_bytes(p));
+  if (threadIdx.x == 0) carve_pairs(ch, base, p);
+  __syncthreads();
   for (int k = threadIdx.x; k < p; k += blockDim.x) {
     ch.a[k] = (int)a_idx[(size_t)c * p + k];
     ch.a_min[k] = a_min[(size_t)c * p + k];
@@ -113,6 +118,9 @@ __global__ void __launch_bounds__(THREADS) multi_merge_choose_kernel(
     h_out[o] = corner_mix(h_table, off, g1, du, dv);
   }
 }
+
+// Dynamic shared memory of multi_merge_choose_kernel, in bytes.
+size_t choose_smem(int p, int s) { return pair_choice_bytes(p) + (size_t)p * s * sizeof(float); }
 
 }  // namespace
 
@@ -138,16 +146,16 @@ extern "C" int multi_merge_scores_launch(const void* alpha, int rows_per_alpha,
 // (c, p) fp32; count: (c,) int32; h_table, wd_table: (g0, g1) fp32.  Writes
 // b_out (c, p) int64, merged_out and exec_out (c, p) bool, h_out (c, p)
 // fp32.  Returns cudaGetLastError(), or the error of raising the kernel's
-// shared-memory limit (p * s * 4 bytes above 48 KB; more than the card
-// offers fails there).
+// shared-memory limit (multi_merge_choose_smem_bytes above 48 KB; more than
+// the card offers fails there).
 extern "C" int multi_merge_choose_launch(const void* alpha, const void* kappa,
                                          const void* a_idx, const void* a_min,
                                          const void* count, int budget, const void* h_table,
                                          const void* wd_table, int g0, int g1, int c, int p,
                                          int s, void* b_out, void* merged_out, void* exec_out,
                                          void* h_out, void* stream) {
-  if (p < 1 || p > MAX_P) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)p * s * sizeof(float);
+  if (p < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = choose_smem(p, s);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         multi_merge_choose_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -18,16 +18,37 @@
 
 namespace {
 
-constexpr int MAX_P = 32;   // largest merge_batch (the pair lists are static)
-
-// One event's fixed partners and choice, in shared memory.  The caller fills
-// a[k] (the slot of the k-th smallest active |alpha|) and a_min[k] (its alpha).
+// One event's fixed partners and choice.  The per-pair lists live in
+// dynamic shared memory, sized by P (carve_pairs); the struct, in static
+// shared memory, holds their addresses and the counters.  The caller fills
+// a[k] (the slot of the k-th smallest active |alpha|) and a_min[k] (its
+// alpha).
 struct PairChoice {
-  int a[MAX_P], b[MAX_P], taken[2 * MAX_P];
-  float a_min[MAX_P];
-  bool merged[MAX_P], executed[MAX_P], consumed[MAX_P];
+  int *a, *b, *taken;   // taken: up to 2 P slots
+  float* a_min;
+  bool *merged, *executed, *consumed;
   int n_taken, n_exec;
 };
+
+// Bytes of PairChoice's lists for P pairs: five 4-byte words and three
+// bools a pair, rounded up to 16 so that what follows stays aligned.
+__host__ __device__ constexpr size_t pair_choice_bytes(int p) {
+  return ((size_t)p * (5 * 4 + 3) + 15) / 16 * 16;
+}
+
+// Points ch's lists into ``base`` (pair_choice_bytes(p) bytes of shared
+// memory).  One thread calls it, before a barrier and any use.
+__device__ void carve_pairs(PairChoice& ch, char* base, int p) {
+  int* w = reinterpret_cast<int*>(base);
+  ch.a = w;
+  ch.b = w + p;
+  ch.taken = w + 2 * p;
+  ch.a_min = reinterpret_cast<float*>(w + 4 * p);
+  bool* f = reinterpret_cast<bool*>(w + 5 * p);
+  ch.merged = f;
+  ch.executed = f + p;
+  ch.consumed = f + 2 * p;
+}
 
 // 3. The Lookup-WD score of each fixed partner k against every slot q of
 // this block's range into wd[k * cs + q - lo]: +inf unless q is active

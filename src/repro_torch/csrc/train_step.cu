@@ -12,11 +12,12 @@
 // shared memory, applies the same updates to it and writes its own range
 // back at the end.
 //   1. margin rows k(xb_i, sv_j) = exp(-gamma max(|x|^2 + |sv|^2 - 2 x.sv, 0))
-//      for the B batch rows (staged in every block) against the block's own
-//      slots: one warp per SV row, the lanes striding over D and reading the
-//      row once (four loads in flight), the B dot products and the row's norm
-//      kept in registers and summed by a butterfly (none for batch rows past
-//      B), the epilogue rbf_from_sums (rbf_epilogue.cuh, shared with
+//      for the B batch rows (staged in every block's shared memory eight
+//      rows at a time; the chunk's row count is a template argument) against
+//      the block's own slots: one warp per SV row, the lanes striding over D
+//      and reading the row once a chunk (four loads in flight), the chunk's
+//      dot products and the row's norm kept in registers and summed by a
+//      butterfly, the epilogue rbf_from_sums (rbf_epilogue.cuh, shared with
 //      rbf_kernel.cu, whose thin path sums in the same order); each block
 //      keeps its slots' margin rows in its shared memory;
 //   2. f_i = k_i . alpha over the active slots (one warp per batch row, in
@@ -72,13 +73,33 @@ constexpr int LOADS = 4;       // SV row loads a lane keeps in flight
 // The multi-merge event's per-pair scalars and lists, in shared memory: the
 // choice (multi_merge_choice.cuh), this block's local top-p, and what the
 // update needs after the choice.  The same in every block of a cluster.
+// The lists are P long, in dynamic shared memory (carve_scratch).
 struct PairScratch : PairChoice {
-  float top_v[MAX_P];
-  int top_i[MAX_P];
-  int dst[MAX_P], src[MAX_P];
-  float h[MAX_P], a_z[MAX_P], lk_ab[MAX_P];
+  float *top_v, *h, *a_z, *lk_ab;
+  int *top_i, *dst, *src, *holes;
   int n_mv;
 };
+
+// Bytes of PairScratch's lists for P pairs (a multiple of 16).
+__host__ __device__ constexpr size_t scratch_bytes(int p) {
+  return pair_choice_bytes(p) + (size_t)8 * p * 4;
+}
+
+// Points sc's lists into ``base`` (scratch_bytes(p) bytes of shared memory).
+// One thread calls it, before a barrier and any use.
+__device__ void carve_scratch(PairScratch& sc, char* base, int p) {
+  carve_pairs(sc, base, p);
+  float* f = reinterpret_cast<float*>(base + pair_choice_bytes(p));
+  sc.top_v = f;
+  sc.h = f + p;
+  sc.a_z = f + 2 * p;
+  sc.lk_ab = f + 3 * p;
+  int* w = reinterpret_cast<int*>(f + 4 * p);
+  sc.top_i = w;
+  sc.dst = w + p;
+  sc.src = w + 2 * p;
+  sc.holes = w + 3 * p;
+}
 
 // One multi-merge event on a class that is over budget: the restatement of
 // core.budget._multi_merge_once with the cache (oracle kernels.ref
@@ -221,7 +242,7 @@ __device__ int multi_merge_body(const Part& pt, TS* sv, float* al, float* km, in
       if (sc.merged[k]) al[sc.a[k]] = sc.a_z[k];
     // 6. targeted-move compaction: the k-th hole below the new watermark
     //    takes the k-th surviving slot above it (both ascending)
-    int holes[MAX_P];
+    int* holes = sc.holes;
     int n_holes = 0;
     for (int k = 0; k < p; ++k)
       if (sc.executed[k]) holes[n_holes++] = sc.merged[k] ? sc.b[k] : sc.a[k];
@@ -275,6 +296,51 @@ __device__ int multi_merge_body(const Part& pt, TS* sv, float* al, float* km, in
   return new_cnt;
 }
 
+// The margin rows k(xb_i, sv_j) of batch rows [i0, i0 + NR), staged in xs
+// with their norms in xn, against this block's slots, into kb: one warp per
+// SV row, the lanes striding over D (LOADS loads in flight), NR dot
+// products and the row's norm in registers, one butterfly each, the
+// epilogue rbf_from_sums.  NR is a template argument: a row count known
+// only at run time would put a predicate on every product of the unrolled
+// loop (PERF.md: the step's device time fell by a quarter without it).
+template <int NR, typename TS>
+__device__ __forceinline__ void margin_rows(const Part& pt, const TS* sv, const float* xs,
+                                            const float* xn, float* kb, int i0, int d,
+                                            float gamma) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n_warps = blockDim.x / 32;
+  for (int j = pt.lo + warp; j < pt.hi; j += n_warps) {
+    const TS* row = sv + (size_t)j * d;
+    float yn = 0.0f;
+    float xy[NR];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) xy[r] = 0.0f;
+    for (int e0 = lane; e0 < d; e0 += LOADS * 32) {
+      float v[LOADS];
+#pragma unroll
+      for (int t = 0; t < LOADS; ++t) {
+        const int e = e0 + t * 32;
+        v[t] = e < d ? to_f32(ld_state(row + e)) : 0.0f;
+      }
+#pragma unroll
+      for (int t = 0; t < LOADS; ++t) {
+        const int e = e0 + t * 32;
+        if (e < d) {
+          yn = fmaf(v[t], v[t], yn);
+#pragma unroll
+          for (int r = 0; r < NR; ++r) xy[r] = fmaf(xs[r * d + e], v[t], xy[r]);
+        }
+      }
+    }
+    yn = warp_sum(yn);
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const float dot = warp_sum(xy[r]);
+      if (lane == 0)
+        kb[(size_t)(i0 + r) * pt.cs + (j - pt.lo)] = rbf_from_sums(xn[i0 + r], yn, dot, gamma);
+    }
+  }
+}
+
 template <typename TS>
 __global__ void __launch_bounds__(THREADS) train_step_kernel(
     TS* sv_x, float* alpha, float* kmat, int* count, const int* __restrict__ step,
@@ -282,7 +348,7 @@ __global__ void __launch_bounds__(THREADS) train_step_kernel(
     const float* __restrict__ k_bb, const float* __restrict__ h_table,
     const float* __restrict__ wd_table, int g0, int g1, int s, int d, int b, int budget,
     float lambda, float gamma, int multi, int p, int k) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem_ts[];
   __shared__ Reduce rd;
   __shared__ PairScratch sc;
   __shared__ float shrink_s;
@@ -297,58 +363,40 @@ __global__ void __launch_bounds__(THREADS) train_step_kernel(
   int cnt = count[c];
   int ph = 0;
 
-  float* al = smem;                    // (s,) this block's copy of alpha
-  float* xs = al + s;                  // (b, d) the minibatch
-  float* kb = xs + (size_t)b * d;      // (b, cs) k(xb_i, sv_j), this block's slots
+  // the multi-merge pair lists, then alpha and the phases' buffers
+  char* scratch = reinterpret_cast<char*>(smem_ts);
+  float* al = reinterpret_cast<float*>(scratch + (multi ? scratch_bytes(p) : 0));   // (s,)
+  float* xs = al + s;                  // (ROW_CHUNK, d) a chunk of the minibatch rows
+  float* kb = xs + (size_t)min(b, ROW_CHUNK) * d;   // (b, cs) k(xb_i, sv_j), this block's slots
   float* xn = kb + (size_t)b * cs;     // (b,) |xb_i|^2
   float* new_a = xn + b;               // (b,) margins, then the inserted alphas
   int* pos = reinterpret_cast<int*>(new_a + b);   // (b,) target slots, s = none
-  for (int e = tid; e < b * d; e += nt) xs[e] = xb[e];
+  if (multi && tid == 0) carve_scratch(sc, scratch, p);
   for (int q = tid; q < s; q += nt) al[q] = ld_state(alpha + (size_t)c * s + q);
-  __syncthreads();
-  for (int i = warp; i < b; i += n_warps) {
-    float acc = 0.0f;
-    for (int e = lane; e < d; e += 32) acc = fmaf(xs[i * d + e], xs[i * d + e], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) xn[i] = acc;
-  }
-  __syncthreads();
 
-  // 1. margin rows of this block's slots
-  for (int j = pt.lo + warp; j < pt.hi; j += n_warps) {
-    const TS* row = sv + (size_t)j * d;
-    float yn = 0.0f;
-    for (int i0 = 0; i0 < b; i0 += ROW_CHUNK) {
-      float xy[ROW_CHUNK];
-#pragma unroll
-      for (int r = 0; r < ROW_CHUNK; ++r) xy[r] = 0.0f;
-      for (int e0 = lane; e0 < d; e0 += LOADS * 32) {
-        float v[LOADS];
-#pragma unroll
-        for (int t = 0; t < LOADS; ++t) {
-          const int e = e0 + t * 32;
-          v[t] = e < d ? to_f32(ld_state(row + e)) : 0.0f;
-        }
-#pragma unroll
-        for (int t = 0; t < LOADS; ++t) {
-          const int e = e0 + t * 32;
-          if (e < d) {
-            if (i0 == 0) yn = fmaf(v[t], v[t], yn);
-#pragma unroll
-            for (int r = 0; r < ROW_CHUNK; ++r)
-              if (i0 + r < b) xy[r] = fmaf(xs[(i0 + r) * d + e], v[t], xy[r]);
-          }
-        }
-      }
-      if (i0 == 0) yn = warp_sum(yn);
-#pragma unroll
-      for (int r = 0; r < ROW_CHUNK; ++r) {
-        if (i0 + r < b) {   // uniform across the warp: no butterfly past B
-          const float dot = warp_sum(xy[r]);
-          if (lane == 0)
-            kb[(size_t)(i0 + r) * cs + (j - pt.lo)] = rbf_from_sums(xn[i0 + r], yn, dot, gamma);
-        }
-      }
+  // 1. margin rows of this block's slots, the minibatch staged ROW_CHUNK
+  // rows at a time (a lane's features in the same order for every chunk)
+  for (int i0 = 0; i0 < b; i0 += ROW_CHUNK) {
+    const int nr = min(ROW_CHUNK, b - i0);
+    __syncthreads();   // the previous chunk's rows are read
+    for (int e = tid; e < nr * d; e += nt) xs[e] = xb[(size_t)i0 * d + e];
+    __syncthreads();
+    for (int i = warp; i < nr; i += n_warps) {
+      float acc = 0.0f;
+      for (int e = lane; e < d; e += 32) acc = fmaf(xs[i * d + e], xs[i * d + e], acc);
+      acc = warp_sum(acc);
+      if (lane == 0) xn[i0 + i] = acc;
+    }
+    __syncthreads();
+    switch (nr) {   // the row count as a template argument: no predicate in the loop
+      case 1: margin_rows<1>(pt, sv, xs, xn, kb, i0, d, gamma); break;
+      case 2: margin_rows<2>(pt, sv, xs, xn, kb, i0, d, gamma); break;
+      case 3: margin_rows<3>(pt, sv, xs, xn, kb, i0, d, gamma); break;
+      case 4: margin_rows<4>(pt, sv, xs, xn, kb, i0, d, gamma); break;
+      case 5: margin_rows<5>(pt, sv, xs, xn, kb, i0, d, gamma); break;
+      case 6: margin_rows<6>(pt, sv, xs, xn, kb, i0, d, gamma); break;
+      case 7: margin_rows<7>(pt, sv, xs, xn, kb, i0, d, gamma); break;
+      default: margin_rows<ROW_CHUNK>(pt, sv, xs, xn, kb, i0, d, gamma); break;
     }
   }
   part_sync(pt);   // every block's margin rows are readable cluster-wide
@@ -402,7 +450,7 @@ __global__ void __launch_bounds__(THREADS) train_step_kernel(
   for (int i = 0; i < b; ++i) {
     if (pos[i] >= s) continue;
     for (int e = pt.f_lo + tid; e < pt.f_hi; e += nt)
-      sv[(size_t)pos[i] * d + e] = from_f32<TS>(xs[i * d + e]);
+      sv[(size_t)pos[i] * d + e] = from_f32<TS>(xb[(size_t)i * d + e]);
     for (int q = pt.lo + tid; q < pt.hi; q += nt) km[(size_t)pos[i] * s + q] = ins_row(i, q);
   }
   part_sync(pt);
@@ -441,15 +489,17 @@ __global__ void __launch_bounds__(THREADS) train_step_kernel(
   }
 }
 
-// Dynamic shared memory of one block with clusters of k, in bytes: the copy
-// of alpha, then the margin phase's minibatch, margin rows and per-row
-// scalars, or the event phase's rows, whichever is larger (the phases reuse
-// one buffer).
+// Dynamic shared memory of one block with clusters of k, in bytes: the
+// multi-merge pair lists, the copy of alpha, then the margin phase's chunk
+// of minibatch rows, margin rows and per-row scalars, or the event phase's
+// rows, whichever is larger (the phases reuse one buffer).
 size_t smem_bytes(int s, int d, int b, int multi, int p, int k) {
   const size_t cs = (size_t)((s + k - 1) / k);
-  const size_t insert = (size_t)b * d + (size_t)b * cs + 3 * (size_t)b;
+  const size_t rows = (size_t)(b < ROW_CHUNK ? b : ROW_CHUNK);   // a chunk of the minibatch
+  const size_t insert = rows * d + (size_t)b * cs + 3 * (size_t)b;
   const size_t event = multi ? 3 * (size_t)p * cs : 3 * cs;
-  return ((size_t)s + (insert > event ? insert : event)) * sizeof(float);
+  return (multi ? scratch_bytes(p) : 0)
+         + ((size_t)s + (insert > event ? insert : event)) * sizeof(float);
 }
 
 }  // namespace
@@ -485,7 +535,7 @@ extern "C" int train_step_launch(void* sv_x, int sv_bf16, void* alpha, void* kma
                                  const void* h_table, const void* wd_table, int g0, int g1,
                                  int c, int s, int d, int b, int budget, float lambda,
                                  float gamma, int multi, int p, int k, void* stream) {
-  if (p > MAX_P || k < 1 || k > 16) return (int)cudaErrorInvalidValue;
+  if (p < 1 || k < 1 || k > 16) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(s, d, b, multi, p, k);
   auto launch = [&](auto* sv, auto kernel) {
     cudaError_t e = cluster_prepare(kernel, smem);

@@ -40,11 +40,8 @@ SOURCES = {
     "train_step": ("-fmad=false",),
 }
 
-# shared memory one thread block may use on Hopper (227 KB), and the largest
-# multi-merge batch the kernels keep static lists for (csrc
-# multi_merge_choice.cuh MAX_P)
+# shared memory one thread block may use on Hopper (227 KB)
 SMEM_LIMIT = 232_448
-MAX_MERGE_BATCH = 32
 # blocks in a class's thread-block cluster (csrc/cluster.cuh), largest first;
 # 16 is above the portable cluster size of 8
 CLUSTER_SIZES = (16, 8, 4, 2, 1)
@@ -144,18 +141,26 @@ def choose_cluster(c: int, resident: dict) -> int:
     return 1
 
 
-def resident_clusters(name: str, symbol: str, *args) -> dict:
-    """``{K: clusters of K resident at once}`` from the C entry ``symbol`` of
-    ``csrc/<name>.cu``, called as ``symbol(K, *args)``; raises on a CUDA error."""
+def resident_clusters(name: str, symbol: str, sizes, *args) -> dict:
+    """``{K: clusters of K resident at once}`` for each K of ``sizes`` from the
+    C entry ``symbol`` of ``csrc/<name>.cu``, called as ``symbol(K, *args)``;
+    raises on a CUDA error."""
     fn = function(name, symbol, "i" * (1 + len(args)))
     counts = {}
-    for k in CLUSTER_SIZES:
+    for k in sizes:
         n = fn(k, *args)
         if n < 0:
             raise RuntimeError(f"{symbol}: cudaOccupancyMaxActiveClusters failed for K={k} "
                                f"with error {-n}")
         counts[k] = n
     return counts
+
+
+def pair_choice_bytes(p: int) -> int:
+    """Shared-memory bytes of a multi-merge event's pair lists for ``p`` pairs
+    (csrc/multi_merge_choice.cuh ``pair_choice_bytes``: five 4-byte words and
+    three bools a pair, rounded up to 16)."""
+    return (p * (5 * 4 + 3) + 15) // 16 * 16
 
 
 def dense(t):

@@ -1,8 +1,12 @@
-"""Launch wrapper for the hand-written golden-section-search kernel (``csrc/gss.cu``).
+"""Launch wrappers for the hand-written golden-section-search kernels (``csrc/gss.cu``).
 
-Replaces ``repro.kernels.gss.gss_pallas`` on the H100: one thread per
-``(m, kappa)`` problem, ``n_iters`` bracket steps in registers.
-``launches`` counts the kernel launches.
+Replace ``repro.kernels.gss.gss_pallas`` on the H100.  ``gss_cuda``: one
+thread per ``(m, kappa)`` problem, ``n_iters`` bracket steps in registers.
+``gss_pick_cuda``: a whole GSS merge event's choice per row in one launch
+(mask, every valid candidate's search and weight degradation,
+first-occurrence argmin, h* at the winner), with the lean per-call path of
+``merge_lookup.merge_pick_cuda``.  ``launches`` and ``pick_launches``
+count the two kernels' launches.
 """
 from __future__ import annotations
 
@@ -11,6 +15,9 @@ import torch
 from . import _build
 
 launches = 0
+pick_launches = 0
+_F32, _I32, _I64 = torch.float32, torch.int32, torch.int64
+_dense = _build.dense
 
 
 def gss_cuda(m: torch.Tensor, kappa: torch.Tensor, n_iters: int) -> torch.Tensor:
@@ -34,3 +41,45 @@ def gss_cuda(m: torch.Tensor, kappa: torch.Tensor, n_iters: int) -> torch.Tensor
     _build.check(status, "gss")
     launches += 1
     return h
+
+
+def gss_pick_cuda(alpha, kappa, count, i_min, a_min, n_iters: int):
+    """``(j_star, wd_j, h_j)`` of one GSS merge event per row, on the card.
+
+    alpha, kappa: (s,) or (R, s) fp32; count: one int32 per row (a binary
+    state's 0-d count, or (R,)); i_min: (R,) int64, the fixed partner's slot;
+    a_min: (R,) fp32, its coefficient; ``n_iters`` bracket steps.  Candidate
+    j is valid when ``j < count``, ``alpha_j * a_min > 0`` and ``j !=
+    i_min``.  Returns the first-occurrence argmin of the weight degradations
+    (R,) int64 (slot 0 when none is valid), its WD (R,) (3.4e38, ``>=
+    NO_PARTNER``, when none is valid) and h* at the winner (R,)."""
+    global pick_launches
+    dev = alpha.get_device()
+    if dev < 0 or any(t.get_device() != dev for t in (kappa, count, i_min, a_min)):
+        raise ValueError("gss_pick_cuda needs every input on one CUDA device")
+    if not (alpha.dtype == kappa.dtype == a_min.dtype == _F32):
+        raise TypeError("gss_pick_cuda takes fp32 alpha, kappa and a_min")
+    if count.dtype != _I32 or i_min.dtype != _I64:
+        raise TypeError(f"count must be int32 and i_min int64, got {count.dtype}, {i_min.dtype}")
+    if alpha.dim() not in (1, 2) or alpha.shape[-1] == 0:
+        raise ValueError(f"alpha must be (s,) or (R, s) with s > 0, got {tuple(alpha.shape)}")
+    if n_iters < 0:
+        raise ValueError(f"n_iters={n_iters} < 0")
+    s = alpha.shape[-1]
+    rows = alpha.numel() // s
+    if (kappa.shape != alpha.shape or count.numel() != rows or i_min.numel() != rows
+            or a_min.numel() != rows):
+        raise ValueError(f"shapes do not pair: alpha {tuple(alpha.shape)}, kappa "
+                         f"{tuple(kappa.shape)}, count {tuple(count.shape)}, i_min "
+                         f"{tuple(i_min.shape)}, a_min {tuple(a_min.shape)}")
+    j_star = i_min.new_empty(rows)
+    wd_j, h_j = a_min.new_empty((2, rows)).unbind(0)
+    if rows == 0:
+        return j_star, wd_j, h_j
+    status = _build.function("gss", "gss_pick_launch", "pppppiiipppp")(
+        _dense(alpha).data_ptr(), _dense(kappa).data_ptr(), _dense(count).data_ptr(),
+        _dense(i_min).data_ptr(), _dense(a_min).data_ptr(), rows, s, int(n_iters),
+        j_star.data_ptr(), wd_j.data_ptr(), h_j.data_ptr(), _build.stream(dev))
+    _build.check(status, "gss_pick")
+    pick_launches += 1
+    return j_star, wd_j, h_j

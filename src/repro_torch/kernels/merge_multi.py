@@ -73,7 +73,8 @@ def multi_merge_choose_cuda(alpha, kappa_rows, a_idx, a_min, count, budget: int,
     alpha: (C, s) fp32; kappa_rows: (C, P, s) fp32, the fixed partners' kernel
     rows; a_idx: (C, P) int64 and a_min: (C, P) fp32, the fixed partners (the
     P smallest active |alpha|, cheapest first) and their coefficients; count:
-    (C,) int32; tables: (G0, G1) fp32 of one shape; 1 <= P <= 32.  Returns
+    (C,) int32; tables: (G0, G1) fp32 of one shape; P >= 1, as far as the
+    pair lists and the (P, s) scores fit one block's shared memory.  Returns
     ``(b_idx, merged, execute, h_star)``, (C, P) each: every pair's best
     untaken partner (int64), whether it merges or, executing without a
     partner, falls back to removal (bool, bool), and the h table at its
@@ -96,11 +97,12 @@ def multi_merge_choose_cuda(alpha, kappa_rows, a_idx, a_min, count, budget: int,
         raise ValueError(f"shapes do not pair: alpha {tuple(alpha.shape)}, kappa_rows "
                          f"{(c, p, s)}, a_idx {tuple(a_idx.shape)}, a_min "
                          f"{tuple(a_min.shape)}, count {tuple(count.shape)}")
-    if not 1 <= p <= _build.MAX_MERGE_BATCH:
-        raise ValueError(f"P={p} pairs outside [1, {_build.MAX_MERGE_BATCH}]")
-    if p * s * 4 + _STATIC_SMEM > _build.SMEM_LIMIT:
-        raise ValueError(f"multi_merge_choose_cuda keeps P x s = {p} x {s} scores in shared "
-                         f"memory: {p * s * 4} bytes, more than a block has "
+    if p < 1:
+        raise ValueError(f"P={p} pairs: at least one")
+    need = _build.pair_choice_bytes(p) + p * s * 4 + _STATIC_SMEM
+    if need > _build.SMEM_LIMIT:
+        raise ValueError(f"multi_merge_choose_cuda keeps P = {p} pairs' lists and P x s = {p} x "
+                         f"{s} scores in shared memory: {need} bytes, more than a block has "
                          f"({_build.SMEM_LIMIT})")
     g0, g1 = wd_table.shape
     if h_table.shape != wd_table.shape or g0 < 2 or g1 < 2:

@@ -23,6 +23,7 @@ IMPLS = ("auto", "cuda", "ref")
 # kernel name -> (wrapper module, its launch counter)
 _KERNELS = {"rbf_matrix": (rbf_kernel, "launches"), "merge_scores": (merge_lookup, "launches"),
             "merge_pick": (merge_lookup, "pick_launches"), "gss": (gss_kernel, "launches"),
+            "gss_pick": (gss_kernel, "pick_launches"),
             "multi_merge_scores": (merge_multi, "launches"),
             "multi_merge_choose": (merge_multi, "choose_launches"),
             "merge_event": (merge_event_kernel, "launches"),
@@ -121,6 +122,21 @@ def gss_solve(m, kappa, *, n_iters: int, impl: str = "auto"):
     if _use_kernel(impl, m):
         return gss_kernel.gss_cuda(m.float(), kappa.float(), n_iters)
     return ref.gss(m, kappa, n_iters)
+
+
+def gss_pick(alpha, kappa, count, i_min, a_min, *, n_iters: int, impl: str = "auto"):
+    """The choice of one GSS merge event per row: ``(j_star, wd_j, h_j)``.
+
+    Inputs as ``merge_pick``'s, without the tables: each valid candidate's
+    h* comes from ``n_iters`` golden-section bracket steps (10 for ``gss``,
+    48 for ``gss-precise``), then its exact weight degradation; ``j_star``
+    is the first-occurrence argmin (slot 0 when none is valid), ``wd_j`` its
+    WD (``>= ref.NO_PARTNER`` when none is valid: the removal fallback) and
+    ``h_j`` h* at the winner.  On the card one ``gss_pick`` launch; the
+    plain version is ``ref.gss_pick``."""
+    if _use_kernel(impl, alpha):
+        return gss_kernel.gss_pick_cuda(alpha, kappa, count, i_min, a_min, n_iters)
+    return ref.gss_pick(alpha, kappa, count, i_min, a_min, n_iters)
 
 
 def merge_pick(alpha, kappa, count, i_min, a_min, table, *, impl: str = "auto"):

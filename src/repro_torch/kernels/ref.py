@@ -128,6 +128,35 @@ def merge_pick(alpha, kappa, count, i_min, a_min, wd_table, h_table):
     return j_star, at_j(wd), bilinear_lookup(h_table, m, kap)
 
 
+def gss_pick(alpha, kappa, count, i_min, a_min, n_iters: int):
+    """The choice of one GSS merge event per row (the plain version of the
+    ``gss_pick`` kernel): ``core.budget._merge_once``'s step 3 under ``gss``
+    and ``gss-precise``, op for op.
+
+    alpha, kappa: (s,) or (R, s); count: 0-d or (R,); i_min, a_min: (R,).
+    Candidate j is valid when ``j < count``, ``alpha_j * a_min > 0`` and
+    ``j != i_min``.  Every candidate's h* comes from ``n_iters`` bracket steps
+    of ``gss`` at its ``(m, kappa)``, then its merged coefficient and weight
+    degradation (``core.merge_math.merge_alpha_z`` and
+    ``weight_degradation``).  Returns ``(j_star, wd_j, h_j)`` (R,): the
+    first-occurrence argmin of the WD (+inf where invalid, so slot 0 when
+    none is valid), its WD, and h* at the winner."""
+    s = alpha.shape[-1]
+    alpha, kappa = alpha.reshape(-1, s), kappa.reshape(-1, s)
+    a_col = a_min.reshape(-1, 1)
+    idx = iota(s, alpha.device)
+    valid = (idx < count.reshape(-1, 1)) & (alpha * a_col > 0) & (idx != i_min.reshape(-1, 1))
+    m, kap = merge_coords(a_col, alpha, kappa)
+    h = gss(m, kap, n_iters)
+    u = 1.0 - h
+    a_z = a_col * _kappa_pow(kap, u * u) + alpha * _kappa_pow(kap, h * h)
+    wd = a_col * a_col + alpha * alpha + 2.0 * a_col * alpha * kap - a_z * a_z
+    wd = torch.where(valid, wd, torch.inf)
+    j_star = torch.argmin(wd, dim=1)
+    at_j = lambda t: t.gather(1, j_star[:, None])[:, 0]
+    return j_star, at_j(wd), at_j(h)
+
+
 def multi_merge_scores_rows(alpha_rows, kappa_rows, valid, a_min, h_table, wd_table):
     """Lookup-WD scoring where every fixed partner brings its own candidate-alpha row.
 

@@ -24,9 +24,13 @@ _SV_DTYPES = (torch.float32, torch.bfloat16)
 
 @functools.lru_cache(maxsize=64)
 def cluster_size(sv_bf16: bool, c: int, s: int, d: int, b: int, multi: bool, p: int) -> int:
-    """The cluster size K the launch takes for this shape (cached)."""
-    resident = _build.resident_clusters("train_step", "train_step_max_clusters", int(sv_bf16),
-                                        c, s, d, b, int(multi), p)
+    """The cluster size K the launch takes for this shape (cached), among the
+    sizes whose blocks' shared memory fits (a large minibatch's margin rows,
+    B x S / K floats a block, may fit only the larger K)."""
+    sizes = [k for k in _build.CLUSTER_SIZES
+             if 0 <= _smem_need(s, d, b, multi, p, k) <= _build.SMEM_LIMIT]
+    resident = _build.resident_clusters("train_step", "train_step_max_clusters", sizes,
+                                        int(sv_bf16), c, s, d, b, int(multi), p)
     return _build.choose_cluster(c, resident)
 
 
@@ -48,8 +52,10 @@ def train_step_cuda(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb,
     ``batch_size``; yb: (C, B) fp32 one-vs-rest targets; k_bb: (B, B) fp32
     ``k(xb, xb)``; tables: (G0, G1) fp32 of one shape.  ``maintenance`` is
     ``"merge"`` or ``"multi-merge"`` (``merge_batch`` pairs an event, at most
-    32).  ``cluster`` fixes the blocks a class (one of
-    ``_build.CLUSTER_SIZES``); None takes ``cluster_size``'s choice.  A launch the card refuses raises.
+    S).  ``cluster`` fixes the blocks a class (one of
+    ``_build.CLUSTER_SIZES``); None takes ``cluster_size``'s choice.  A
+    shape whose blocks' shared memory does not fit raises, as does a launch
+    the card refuses.
     Returns the six updated tensors and ``step + 1`` as ``(sv_x, alpha,
     kmat, count, step + 1, n_inserts, n_merges)``."""
     global launches
@@ -79,9 +85,8 @@ def train_step_cuda(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb,
                          "n_merges in place: they must be contiguous")
     multi = maintenance == "multi-merge"
     p = merge_batch if multi else 1
-    if not 1 <= p <= min(_build.MAX_MERGE_BATCH, s):
-        raise ValueError(f"merge_batch={merge_batch} outside [1, {_build.MAX_MERGE_BATCH}] "
-                         f"or above S={s}")
+    if not 1 <= p <= s:
+        raise ValueError(f"merge_batch={merge_batch} outside [1, S={s}]")
     if cluster is not None and cluster not in _build.CLUSTER_SIZES:
         raise ValueError(f"cluster={cluster} not in {_build.CLUSTER_SIZES}")
     g0, g1 = wd_table.shape

@@ -31,17 +31,23 @@ calls of ``ops.merge_scores`` (s = 501) and ``ops.multi_merge_scores`` (C =
 
 Each tree's decisions are held to the other's: the integer state (count,
 n_inserts, n_merges) of every warm state and after every run must be equal.
-Before the pairs, each worker also splits the fused step (``train_step``)
-of each fused configuration: its device time a launch (``torch.profiler``,
-``SPLIT_STEPS`` steps, each from the warm state, so that every step keeps
-its shape) at the budget, where each step that inserts runs event rounds,
+So are the bits of ``rbf_matrix`` at ``RBF_SHAPES`` (the binary path's
+margin row, run (a)'s margin rows, a minibatch of 32 against that bank,
+decision values), fp32 and bf16, on inputs from one seed: each worker
+reports, once both are ready and one at a time, the SHA-256 of every
+output and its device time a launch (``torch.profiler``).
+Before the pairs, each worker in turn (the other waiting) also splits the
+fused step (``train_step``) of each fused configuration: its device time a
+launch (``torch.profiler``, ``SPLIT_STEPS`` steps, each from the warm
+state, so that every step keeps its shape) at the budget, where each step that inserts runs event rounds,
 and with every count lowered by one batch, so that no round runs (the
 margin rows and the insert alone).
 
 Prints each run and, per configuration, each tree's median, quartiles, mean
 and range, the same of the paired differences (second tree minus first) and
 in how many pairs the second tree was slower; ``--out`` also writes them as
-JSON.  Exits 1 if the two trees' decisions differ anywhere.
+JSON.  Exits 1 if the two trees' decisions or rbf_matrix bits differ
+anywhere.
 """
 from __future__ import annotations
 
@@ -69,6 +75,8 @@ WARM_STEPS = 4_000
 MC_CLASSES, MC_DIM, MC_TRAIN, MC_TEST, MC_BATCH = 10, 780, 60_000, 10_000, 8
 MC_WARM_STEPS = 700
 SPLIT_STEPS = 50
+# rbf_matrix's shapes (n, m, d) held bit for bit across the trees
+RBF_SHAPES = [(1, 501, 123), (8, 5_080, 780), (32, 5_080, 780), (6_512, 501, 123)]
 
 
 def worker(tree: str) -> None:
@@ -103,22 +111,29 @@ def worker(tree: str) -> None:
     op_inputs = _op_inputs(dev)
     from repro_torch.core import multiclass as mc
     from repro_torch.kernels import ops
-    split = {}
-    for name in ("fused lookup-wd", "fused merge (c)", "fused multi-merge (d)"):
-        if name in BINARY:
-            cfg, table, st = warm[name]
-            rows, step_fn, data = 1, bsgd.train_step, (xs, ys)
-            start = WARM_STEPS
-        else:
-            cfg, table, st, *data = warm[name]
-            rows, step_fn = MC_BATCH, mc.train_step_multiclass
-            start = MC_WARM_STEPS * MC_BATCH
-        below = st._replace(count=st.count - rows)
-        split[name] = {case: _step_device_us(step_fn, cfg, table, state, data, start, rows)
-                       for case, state in (("at budget", st), ("below budget", below))}
-    print(json.dumps({"ready": tree, "decisions": {m: _decisions(w[2]) for m, w in warm.items()},
-                      "split_device_us": split}), flush=True)
+
+    def split():
+        out = {}
+        for name in ("fused lookup-wd", "fused merge (c)", "fused multi-merge (d)"):
+            if name in BINARY:
+                cfg, table, st = warm[name]
+                rows, step_fn, data = 1, bsgd.train_step, (xs, ys)
+                start = WARM_STEPS
+            else:
+                cfg, table, st, *data = warm[name]
+                rows, step_fn = MC_BATCH, mc.train_step_multiclass
+                start = MC_WARM_STEPS * MC_BATCH
+            below = st._replace(count=st.count - rows)
+            out[name] = {case: _step_device_us(step_fn, cfg, table, state, data, start, rows)
+                         for case, state in (("at budget", st), ("below budget", below))}
+        return out
+
+    print(json.dumps({"ready": tree, "decisions": {m: _decisions(w[2]) for m, w in warm.items()}}),
+          flush=True)
     for line in sys.stdin:
+        if line.strip() in ("rbf", "split"):   # device times, taken while the other waits
+            print(json.dumps(_rbf_checks(dev) if line.strip() == "rbf" else split()), flush=True)
+            continue
         head, n = line.rsplit(" ", 1)
         kind, n = head.removeprefix("run "), int(n)
         torch.cuda.synchronize()
@@ -145,6 +160,41 @@ def worker(tree: str) -> None:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         print(json.dumps({"us_per_step": secs / n * 1e6, **res}), flush=True)
+
+
+def _rbf_checks(dev) -> dict:
+    """``{"n x m x d dtype": {"sha256": ..., "device_us": ...}}`` of
+    ``ops.rbf_matrix`` at each of ``RBF_SHAPES``, fp32 and bf16 operands made
+    from one seed a shape; the device time a launch from ``torch.profiler``
+    over 50 launches (None if it reports no such kernel)."""
+    import hashlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+
+    out = {}
+    for n, m, d in RBF_SHAPES:
+        gen = torch.Generator().manual_seed(n * 7 + m + d)
+        x32, y32 = torch.randn(n, d, generator=gen), torch.randn(m, d, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, y = x32.to(dev, dtype), y32.to(dev, dtype)
+            k = ops.rbf_matrix(x, y, 2.0 ** -7, impl="cuda")
+            digest = hashlib.sha256(k.cpu().numpy().tobytes()).hexdigest()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(50):
+                    ops.rbf_matrix(x, y, 2.0 ** -7, impl="cuda")
+                torch.cuda.synchronize()
+            total, count = 0.0, 0
+            for ev in prof.key_averages():
+                if "rbf_" in ev.key:
+                    total += (getattr(ev, "device_time_total", 0.0)
+                              or getattr(ev, "cuda_time_total", 0.0))
+                    count += ev.count
+            out[f"{n}x{m}x{d} {str(dtype)[6:]}"] = dict(
+                sha256=digest, device_us=total / count if count and total > 0 else None)
+    return out
 
 
 def _decisions(st) -> dict:
@@ -271,6 +321,19 @@ def main() -> int:
             ready.append(json.loads(_reply(p)))
             print(f"worker {t}: {json.dumps(ready[-1])}", flush=True)
         same["warm states"] = ready[0]["decisions"] == ready[1]["decisions"]
+        for r, p in zip(ready, procs):   # one worker at a time: the card is quiet
+            for what, key in (("rbf", "rbf_matrix"), ("split", "split_device_us")):
+                p.stdin.write(f"{what}\n")
+                p.stdin.flush()
+                r[key] = json.loads(_reply(p))
+            print(f"worker {r['ready']}: fused-step device us a launch "
+                  f"{json.dumps(r['split_device_us'])}", flush=True)
+        for shape, first in ready[0]["rbf_matrix"].items():
+            second = ready[1]["rbf_matrix"][shape]
+            same[f"rbf_matrix {shape} bits"] = first["sha256"] == second["sha256"]
+            print(f"rbf_matrix {shape}: device us a launch {first['device_us']} (first tree) "
+                  f"{second['device_us']} (second); bit-equal "
+                  f"{same[f'rbf_matrix {shape} bits']}", flush=True)
         kinds = {**{m: args.steps for m in BINARY},
                  **{r: args.class_steps if r == "multi-merge (b)" else args.fused_steps
                     for r in CLASS_RUNS},
@@ -306,12 +369,14 @@ def main() -> int:
         print(f"{method}: {json.dumps({t: report[method]['summary'][t] for t in args.tree})}")
         print(f"{method}: second minus first, per pair: {json.dumps(_summary(diffs))}; "
               f"second slower in {report[method]['second_slower_in']} of {len(diffs)} pairs")
-    print(f"decisions (count, n_inserts, n_merges) equal between the trees: {json.dumps(same)}")
+    print(f"decisions (count, n_inserts, n_merges) and rbf_matrix bits equal between the "
+          f"trees: {json.dumps(same)}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
             steps=kinds, trees=args.tree, methods=report, decisions_equal=same,
-            split_device_us={t: r["split_device_us"] for t, r in zip(args.tree, ready)}),
+            split_device_us={t: r["split_device_us"] for t, r in zip(args.tree, ready)},
+            rbf_matrix={t: r["rbf_matrix"] for t, r in zip(args.tree, ready)}),
             indent=1))
     return 0 if all(same.values()) else 1
 
