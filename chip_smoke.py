@@ -76,7 +76,19 @@ non-zero exit code:
      on the card, with every maintenance round run twice from the same state,
      through the ``multi_merge_choose`` kernel and through the plain scoring
      and choice (``impl="ref"``): count, sv_x, alpha and kmat equal bit for
-     bit at every round.
+     bit at every round;
+ 15. serving (run after phase 11's runs), from run (c)'s state exported with
+     an fp32 and a bf16 bank: the 10,000 test rows' scores in one direct
+     call and as microbatches at every bucket of ``default_buckets(256)``
+     and at the ragged trace's offsets, bit-equal; ``class_scores`` bit-equal
+     to its plain version at the serve shape, on a ragged C = 3, s = 37 with
+     an exact tie and on a binary model with an exact zero score; the device
+     time of ``rbf_tiled`` at 8, 64 and 256 rows and of ``class_scores``
+     beside their bounds; ``drive_trace`` over the ragged trace with the
+     sync and the async queue, each bank (every launch counter 0 before and
+     read after), with no kernel library loaded and no device memory
+     reserved after the warm-up; labels equal ``predict_multiclass`` and
+     accuracy run (c)'s; a checkpoint written and served back bit-equal.
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 It imports nothing from the JAX package.  Without a CUDA device, or without
@@ -283,11 +295,13 @@ def rbf_cutover(ref, gen):
               f"{'thin' if n <= rbf_kernel.THIN_ROWS else 'tiled'}")
 
 
-def _rbf_work(n, m, d, elem):
-    """(bytes, operations) of one rbf_matrix call: each operand read once, the
+def _rbf_work(n, m, d, elem, y_elem=None):
+    """(bytes, operations) of one rbf_matrix call: each operand read once
+    (x's elements ``elem`` bytes, y's ``y_elem``, default the same), the
     output written once; two a multiply-add of x.y and of the norms, five an
     output (the epilogue)."""
-    return (elem * (n + m) * d + 4 * n * m,
+    y_elem = elem if y_elem is None else y_elem
+    return (elem * n * d + y_elem * m * d + 4 * n * m,
             2.0 * n * m * d + 2.0 * (n + m) * d + 5.0 * n * m)
 
 
@@ -1894,6 +1908,191 @@ def phase_choose_lockstep(mc, budget_mod, data, run_b):
     check(not seen["differ"], f"choose lockstep: the kernel and plain rounds part at round "
           f"{seen['differ'][:1]}")
 
+# phase 15: the serving configuration's queue geometry and the kernel shapes
+SERVE_MAX_BATCH = 256
+SERVE_TIMED_ROWS = (8, 64, 256)
+
+
+def _class_scores_work(n, c, s):
+    """(bytes, operations) of one class_scores call: K (n, C s) and alpha read
+    once, scores (C, n) and labels (n,) written once; a multiply and an add a
+    product, C - 1 compares a row."""
+    return 4.0 * (n * c * s + c * s + c * n + n), 2.0 * n * c * s + n * (c - 1)
+
+
+def _serve_kernel_cases(ref, class_scores_cuda, gen):
+    """class_scores against its plain version, bit for bit, on inputs built to
+    meet its edge cases: a ragged C = 3, s = 37; a binary C = 1 model with an
+    exact zero score; an exact tie between two classes."""
+    dev = torch.device("cuda")
+    k = torch.rand(40, 3 * 37, generator=gen).to(dev)
+    alpha = torch.randn(3, 37, generator=gen).to(dev)
+    alpha[2] = alpha[0]                                   # classes 0 and 2 tie exactly
+    k[:, 74:] = k[:, :37]
+    kb = torch.rand(9, 50, generator=gen).to(dev)
+    kb[3] = 0.0                                           # row 3 scores exactly 0
+    ab = torch.randn(1, 50, generator=gen).to(dev)
+    out = []
+    for label, kk, aa, binary in (("ragged C=3 s=37 with a tie", k, alpha, False),
+                                  ("binary C=1 with a zero score", kb, ab, True)):
+        got = class_scores_cuda(kk, aa, binary=binary)
+        want = ref.class_scores_labels(kk, aa, binary=binary)
+        equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+        out.append(equal)
+        print(f"class_scores {label}: bit-equal to the plain version {equal}; labels "
+              f"{got[1][:6].tolist()}")
+        check(equal, f"class_scores {label} against its plain version")
+        if binary:
+            check(float(got[1][3]) == 0.0 and float(got[0][0, 3]) == 0.0,
+                  "class_scores: the zero score's sign is not 0")
+        else:
+            check(not bool((got[1] == 2).any()), "class_scores: a tie went to the higher class")
+    return all(out)
+
+
+def phase_serve(core, ops, ref, mc, data, run_c):
+    """Serving at the full MNIST width from run (c)'s state, exported fp32 and
+    bf16: row independence bit for bit, class_scores against its plain
+    version, the two queues over a ragged trace of the test rows (the launch
+    counters set to 0 just before and read just after), no kernel build or
+    new reserved memory after the warm-up, a checkpoint round trip, and the
+    kernels' device time beside their bounds.  Returns the class_scores
+    record and the serve runs' launch counts."""
+    import tempfile
+    from repro_torch import checkpoint
+    from repro_torch.kernels import _build, class_scores as cs_kernel, rbf_kernel
+    (_, _), (xte, yte) = data
+    res, st, _ = run_c
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 15)
+    models = {"fp32": core.export_model(st, MC_GAMMA),
+              "bf16": core.export_model(st, MC_GAMMA, bank_dtype="bfloat16")}
+    xt = torch.as_tensor(xte, device=dev)
+    buckets = core.default_buckets(SERVE_MAX_BATCH)
+    sizes = core.ragged_trace_sizes(MC_TEST, SERVE_MAX_BATCH, np.random.default_rng(SEED))
+
+    # a row's scores: one direct call, every bucket, and the ragged trace's
+    # requests each padded to its bucket as the queue pads
+    for name, model in models.items():
+        direct = core.serve_scores(model, xt)
+        equal = {}
+        for b in buckets + ("ragged",):
+            got = torch.empty_like(direct)
+            spans = ([(o, min(b, MC_TEST - o)) for o in range(0, MC_TEST, b)] if b != "ragged"
+                     else list(zip(np.cumsum([0] + sizes[:-1]).tolist(), sizes)))
+            for off, n in spans:
+                rows = torch.zeros(core.pad_bucket(n, buckets), MC_DIM, device=dev)
+                rows[:n] = xt[off:off + n]
+                got[:, off:off + n] = core.serve_scores(model, rows)[:, :n]
+            equal[b] = bool(torch.equal(got, direct))
+        print(f"serve scores {name} bank: bit-equal to the direct call over {MC_TEST} rows at "
+              f"every bucket and ragged offsets {equal}")
+        check(all(equal.values()), f"serve scores ({name}) depend on the batch: {equal}")
+
+    # class_scores against its plain version, given the same K
+    model = models["fp32"]
+    bank = model.sv_x.reshape(-1, MC_DIM)
+    k = rbf_kernel.rbf_matrix_cuda(xt[:SERVE_MAX_BATCH], bank, MC_GAMMA, path="tiled")
+    got = cs_kernel.class_scores_cuda(k, model.alpha)
+    want = ref.class_scores_labels(k, model.alpha)
+    err = (got[0] - want[0]).abs().max().item()
+    main_equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+    print(f"class_scores {SERVE_MAX_BATCH}x({MC_CLASSES}, {MC_BUDGET + MC_BATCH}): bit-equal to "
+          f"the plain version {main_equal} (max_abs_err {err:.3e}, tol 0)")
+    check(main_equal, "class_scores at the serve shape against its plain version")
+    _serve_kernel_cases(ref, cs_kernel.class_scores_cuda, gen)
+
+    # device time beside the bound
+    m = bank.shape[0]
+    for n in SERVE_TIMED_ROWS:
+        for name in ("fp32", "bf16"):
+            y = models[name].sv_x.reshape(-1, MC_DIM)
+            x = xt[:n]
+            call = lambda: rbf_kernel.rbf_matrix_cuda(x, y, MC_GAMMA, path="tiled")
+            e = (call() - ref.rbf_matrix_rows(x, y, MC_GAMMA)).abs().max().item()
+            check(e <= 1e-5, f"rbf_tiled {n} rows {name} error {e}")
+            k_ms = time_call(call)
+            p_ms = time_call(lambda: ref.rbf_matrix_rows(x, y, MC_GAMMA), calls=2, repeats=3)
+            b_ms, b_by = bound_ms(*_rbf_work(n, m, MC_DIM, 4, y.element_size()))
+            print(f"serve rbf_tiled {n}x{m}x{MC_DIM} {name} bank: device "
+                  f"{us(device_ms(call, 'rbf_'))}, {k_ms * 1e3:.2f} us per call, plain "
+                  f"(rbf_matrix_rows) {p_ms * 1e3:.2f} us, bound {b_ms * 1e3:.4f} us ({b_by}), "
+                  f"err {e:.1e} (tol 1e-5); launches on the serve path: every microbatch")
+    c, s = model.alpha.shape
+    call = lambda: cs_kernel.class_scores_cuda(k, model.alpha)
+    kv = k.view(-1, c, s)
+    record = dict(max_abs_err=err, ms=time_call(call),
+                  plain_ms=time_call(lambda: ref.class_scores_labels(k, model.alpha)),
+                  library_ms=time_call(lambda: torch.einsum("ncs,cs->cn", kv, model.alpha)),
+                  device_ms=device_ms(call, "class_scores"))
+    record["bound_ms"], record["bound_by"] = bound_ms(*_class_scores_work(k.shape[0], c, s))
+    print(f"class_scores {k.shape[0]}x({c}, {s}): device {us(record['device_ms'])}, "
+          f"{record['ms'] * 1e3:.2f} us per call, plain {record['plain_ms'] * 1e3:.2f} us, "
+          f"library (einsum, scores only) {record['library_ms'] * 1e3:.2f} us, bound "
+          f"{record['bound_ms'] * 1e3:.4f} us ({record['bound_by']})")
+
+    # the queues over the ragged trace: the serve path's runs
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    runs = {}
+    for name, model in models.items():
+        for queue in ("sync", "async"):
+            stats = core.drive_trace(model, xte, sizes, max_batch=SERVE_MAX_BATCH, queue=queue)
+            runs[(name, queue)] = stats
+            print(f"serve {queue} queue, {name} bank: rows/s {stats['rows_per_s']} p50 "
+                  f"{stats['p50_ms']} ms p99 {stats['p99_ms']} ms pad waste "
+                  f"{stats['pad_waste_frac']} microbatches {stats['microbatches']} buckets "
+                  f"{stats['bucket_counts']}; after the warm-up: libraries loaded "
+                  f"{stats['live_library_loads']}, reserved bytes "
+                  f"{stats['live_reserved_bytes']}; queue == direct (bitwise)")
+            check(stats["live_library_loads"] == 0, f"serve {queue} {name}: a kernel was built "
+                  "after the warm-up")
+            check(stats["live_reserved_bytes"] == 0, f"serve {queue} {name}: "
+                  f"{stats['live_reserved_bytes']} bytes reserved after the warm-up")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"serve runs' launches: {json.dumps(counts)}")
+
+    # where a microbatch's time goes: one full 256-row microbatch a step
+    n_steps = MC_TEST // SERVE_MAX_BATCH
+    for queue in ("sync", "async"):
+        q = (core.BatchQueue if queue == "sync" else core.AsyncBatchQueue)(
+            models["fp32"], max_batch=SERVE_MAX_BATCH)
+        q.warmup()
+
+        def step(i, q=q):
+            q.take(q.submit(xte[i * SERVE_MAX_BATCH:(i + 1) * SERVE_MAX_BATCH]))
+
+        _profile(step, n_steps, f"serve {queue} queue, fp32 bank, one {SERVE_MAX_BATCH}-row "
+                 "microbatch a step")
+        if queue == "async":
+            q.close()
+    check(counts["class_scores"] > 0 and counts["rbf_matrix"] > 0,
+          "the serve runs did not launch class_scores and rbf_matrix")
+
+    labels = {name: core.predict_labels(m, xte).cpu().numpy() for name, m in models.items()}
+    train_side = mc.predict_multiclass(st, xte, MC_GAMMA).cpu().numpy()
+    acc = {name: float((lab == yte).mean()) for name, lab in labels.items()}
+    print(f"serve labels equal predict_multiclass {bool((labels['fp32'] == train_side).all())}; "
+          f"accuracy fp32 {acc['fp32']:.4f} (run (c)'s accuracy_multiclass {res['accuracy']:.4f}) "
+          f"bf16 {acc['bf16']:.4f}; bf16 labels agree with fp32 on "
+          f"{float((labels['bf16'] == labels['fp32']).mean()):.4f} of the rows")
+    check(bool((labels["fp32"] == train_side).all()), "serve labels differ from predict_multiclass")
+    check(abs(acc["fp32"] - res["accuracy"]) < 0.5 / MC_TEST,
+          f"serve accuracy {acc['fp32']} != run (c)'s {res['accuracy']}")
+    check(acc["fp32"] >= 0.80, f"serve accuracy {acc['fp32']} below the 0.80 sanity floor")
+
+    # a checkpoint round trip through the port's writer and the serve loader
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as d:
+        checkpoint.save(d, 1, {"state": st})
+        for name, bank_dtype in (("fp32", None), ("bf16", "bfloat16")):
+            back = core.load_serve_model(d, MC_GAMMA, bank_dtype=bank_dtype)
+            same = all(bool(torch.equal(getattr(back, f), getattr(models[name], f)))
+                       for f in ("sv_x", "alpha", "count"))
+            print(f"checkpoint round trip ({name} bank): bank, alpha and count bit-equal {same}")
+            check(same, f"checkpoint round trip ({name}) differs from export_model")
+    return {"class_scores": record}, counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1953,6 +2152,9 @@ def main() -> int:
     for run in ("c", "d"):
         with Phase(f"11 class-axis run ({run})"):
             fused_runs[run] = phase_class_run(mc, ops, kernel_cache, mc_data, run)
+    with Phase("15 serving"):
+        serve_records, serve_counts = phase_serve(core, ops, ref, mc, mc_data, fused_runs["c"])
+        records.update(serve_records)
     with Phase("12 fused vs composed lockstep"):
         phase_lockstep(mc, kernel_cache, ref, mc_data)
     with Phase("13 fused step profile"):
@@ -1969,6 +2171,7 @@ def main() -> int:
         counts[name] = mc_runs["b"][0]["launches"][name]
     counts["train_step"] = (binary_fused[0]["launches"]["train_step"]
                             + sum(r[0]["launches"]["train_step"] for r in fused_runs.values()))
+    counts["class_scores"] = serve_counts["class_scores"]
     meta = {
         "rbf_matrix": ("src/repro_torch/csrc/rbf_kernel.cu", "src/repro/kernels/rbf_kernel.py:57"),
         "merge_scores": ("src/repro_torch/csrc/merge_lookup.cu",
@@ -1987,6 +2190,7 @@ def main() -> int:
                                "src/repro/kernels/merge_event.py:193"),
         "train_step": ("src/repro_torch/csrc/train_step.cu",
                        "src/repro/kernels/train_step.py:370"),
+        "class_scores": ("src/repro_torch/csrc/class_scores.cu", "src/repro/kernels/ops.py:103"),
     }
     kernels = [dict(name=name, route="cuda", source=src_path, replaces=replaces,
                     launches=counts[name], **records[name])

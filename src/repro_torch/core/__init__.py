@@ -1,6 +1,14 @@
 """The paper's training loop in PyTorch: merge math, lookup tables, the kernel
-cache, budget maintenance, binary BSGD and the one-vs-rest class axis
-(counterpart of ``repro.core``)."""
+cache, budget maintenance, binary BSGD, the one-vs-rest class axis and
+serving (counterpart of ``repro.core``)."""
+# the serving module imports first: importing it binds the package attribute
+# ``predict`` to the module, and the ``from .bsgd import`` below then makes
+# ``repro_torch.core.predict`` the binary predict function again (as in
+# ``repro.core``) — import serving names from ``repro_torch.core`` itself
+from .predict import (AsyncBatchQueue, BatchQueue, ModelBank, QueueFull, ServeDeadline, ServeModel,
+                      ServeTimeout, default_buckets, drive_trace, export_model, load_serve_model,
+                      pad_bucket, predict_labels, predict_proba, ragged_trace_sizes, serve_requests,
+                      serve_scores, top_k_labels)
 from .bsgd import (BSGDConfig, SVMState, accuracy, decision_function, drain_budget, fit,
                    init_state, insert_from_rows, predict, resolve_device, train_epoch,
                    train_step, train_step_from_rows)
@@ -13,6 +21,10 @@ from .multiclass import (MulticlassSVMConfig, accuracy_multiclass, class_kernel_
                          train_epoch_multiclass, train_step_multiclass)
 
 __all__ = [
+    "AsyncBatchQueue", "BatchQueue", "ModelBank", "QueueFull", "ServeDeadline", "ServeModel",
+    "ServeTimeout", "default_buckets", "drive_trace", "export_model", "load_serve_model",
+    "pad_bucket", "predict_labels", "predict_proba", "ragged_trace_sizes", "serve_requests",
+    "serve_scores", "top_k_labels",
     "BSGDConfig", "METHODS", "MaintenanceInfo", "MergeLookupTable", "MulticlassSVMConfig",
     "STRATEGIES", "SVMState", "accuracy", "accuracy_multiclass", "build_merge_tables",
     "candidate_scores", "class_kernel_rows", "decision_function", "decision_function_multiclass",

@@ -15,8 +15,9 @@ a leading ``(C,)`` axis, and train in lockstep:
   * with ``step_engine="pallas"`` the whole step (margin rows, insert, event
     rounds) is one ``train_step`` launch for all classes.
 
-Prediction is the argmax over the C decision functions, again from one
-kernel call (``kernels.ops.class_scores``).  ``fit_multiclass_loop`` trains
+Prediction is the argmax over the C decision functions, scored by the serve
+cell (``kernels.ops.class_scores``: one kernel block, then one contraction
+launch), the route ``core.predict`` serves through.  ``fit_multiclass_loop`` trains
 the classes one after the other: the baseline the batched engine is measured
 against.  The streaming entry points (``train_chunk_multiclass`` and those built
 on it) are not ported yet (ROADMAP.md Queue 1 item 8).
@@ -92,7 +93,7 @@ def class_kernel_rows(sv_x, x, gamma, *, impl: str = "auto"):
 
 def decision_function_multiclass(state: SVMState, x, gamma, *, impl: str = "auto",
                                  device=None):
-    """Per-class scores f_c(x); x (n, d) -> (C, n), from one kernel launch."""
+    """Per-class scores f_c(x); x (n, d) -> (C, n), from the serve cell."""
     dev = resolve_device(device)
     state = _to(state, dev)
     active = torch.arange(state.alpha.shape[-1], device=dev)[None, :] < state.count[:, None]

@@ -38,6 +38,7 @@ SOURCES = {
     "merge_multi": ("-fmad=false",),
     "merge_event": ("-fmad=false",),
     "train_step": ("-fmad=false",),
+    "class_scores": ("-fmad=false",),
 }
 
 # shared memory one thread block may use on Hopper (227 KB)
@@ -103,6 +104,12 @@ def build(names=None) -> dict[str, str]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return reports
+
+
+def loaded() -> int:
+    """How many kernel libraries this process has loaded (serving checks that
+    live traffic after its warm-up loads, and so builds, none)."""
+    return len(_LIBS)
 
 
 def load(name: str) -> ctypes.CDLL:

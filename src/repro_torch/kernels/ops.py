@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from . import class_scores as class_scores_kernel
 from . import gss as gss_kernel
 from . import merge_event as merge_event_kernel
 from . import merge_lookup, merge_multi, rbf_kernel, ref
@@ -28,7 +29,8 @@ _KERNELS = {"rbf_matrix": (rbf_kernel, "launches"), "merge_scores": (merge_looku
             "multi_merge_choose": (merge_multi, "choose_launches"),
             "merge_event": (merge_event_kernel, "launches"),
             "merge_event_rounds": (merge_event_kernel, "rounds_launches"),
-            "train_step": (train_step_kernel, "launches")}
+            "train_step": (train_step_kernel, "launches"),
+            "class_scores": (class_scores_kernel, "launches")}
 
 
 def _use_kernel(impl: str, t: torch.Tensor) -> bool:
@@ -89,15 +91,31 @@ def rbf_row(sv_x, x, gamma, *, impl: str = "auto"):
 
 
 def class_scores(x, sv_x, alpha, gamma, *, impl: str = "auto"):
-    """All-class decision scores (C, n) from one ``rbf_matrix`` call.
+    """All-class decision scores (C, n): ``serve_cell``'s scores.
 
     x: (n, d); sv_x: (C, slots, d); alpha: (C, slots), inactive slots zeroed
-    by the caller.  The class axis folds into the SV axis, so the kernel sees
-    one (n, C * slots) block; the per-class contraction over slots follows
-    in ``alpha``'s dtype.  Oracle: ``ref.class_scores`` (one call per class)."""
+    by the caller.  Oracle: ``ref.class_scores`` (one call per class)."""
+    return serve_cell(x, sv_x, alpha, gamma, impl=impl)[0]
+
+
+def serve_cell(x, sv_x, alpha, gamma, *, binary: bool = False, impl: str = "auto"):
+    """The serve cell: ``(scores, labels)`` for request rows x (n, d).
+
+    sv_x: (C, slots, d) fp32 or bf16 bank, folded into one (n, C * slots)
+    kernel block; alpha: (C, slots), inactive slots zeroed, contracted in
+    fp32.  scores (C, n); labels (n,) int32 argmax ids, or the fp32 signs of
+    a binary model's one score (``binary``, C = 1).  Every sum has one order
+    whatever n, so a row's scores and label are the same bits in a batch of
+    any size: on the card ``rbf_tiled`` (``path="tiled"`` for every n; one
+    thread sums each output in feature order) then one ``class_scores``
+    launch; on the CPU ``ref.rbf_matrix_rows`` then
+    ``ref.class_scores_labels``."""
     c, slots, d = sv_x.shape
-    k = rbf_matrix(x, sv_x.reshape(c * slots, d), gamma, impl=impl)
-    return torch.einsum("ncs,cs->cn", k.view(x.shape[0], c, slots).to(alpha.dtype), alpha)
+    bank = sv_x.reshape(c * slots, d)
+    if _use_kernel(impl, x):
+        k = rbf_kernel.rbf_matrix_cuda(x, bank, gamma, path="tiled")
+        return class_scores_kernel.class_scores_cuda(k, alpha.float(), binary=binary)
+    return ref.class_scores_labels(ref.rbf_matrix_rows(x, bank, gamma), alpha, binary=binary)
 
 
 def merge_scores(alpha, kappa_row, valid, a_min, table, *, impl: str = "auto"):

@@ -248,6 +248,61 @@ def class_scores(x, sv_x, alpha, gamma):
                         for c in range(sv_x.shape[0])])
 
 
+def rbf_matrix_rows(x, y, gamma):
+    """``rbf_matrix`` with every output's sums in one fixed order, whatever n:
+    x.y, |x|^2 and |y|^2 summed feature by feature (k = 0, 1, ..., d - 1),
+    elementwise products and adds only.  A matrix product may pick its
+    algorithm, and so its order of summation, by the row count; this form
+    gives a row the same bits in a batch of any size (the serve cell's plain
+    path).  x (n, d), y (m, d) -> (n, m) fp32."""
+    x, y = x.float(), y.float()
+    xy = x.new_zeros((x.shape[0], y.shape[0]))
+    xn = x.new_zeros((x.shape[0], 1))
+    yn = y.new_zeros((y.shape[0],))
+    for k in range(x.shape[1]):
+        xk, yk = x[:, k:k + 1], y[:, k]
+        xy = xy + xk * yk
+        xn = xn + xk * xk
+        yn = yn + yk * yk
+    d2 = xn + yn - 2.0 * xy
+    return torch.exp(-gamma * torch.clamp(d2, min=0.0))
+
+
+def class_scores_labels(k, alpha, *, binary: bool = False):
+    """The serve cell's contraction and label (the plain version of
+    ``csrc/class_scores.cu``): ``(scores, labels)``.
+
+    k: (n, C * s) fp32 kernel block; alpha: (C, s) fp32.  scores[c, i] sums
+    k[i, c s + j] * alpha[c, j] as the kernel does: lane l of 32 adds the
+    products of slots l, l + 32, ... in order (each product rounded, then
+    each sum), then the butterfly halves the 32 partials (lane l plus lane
+    l + 16, then + 8, ...).  Elementwise ops only, so a row's scores do not
+    depend on n.  labels: (n,) int32, the first maximum over classes (a NaN
+    counts as the maximum, as ``jnp.argmax``), or for a binary model (C = 1)
+    the fp32 sign, 0 for a zero score and NaN for NaN (``jnp.sign``)."""
+    c, s = alpha.shape
+    n = k.shape[0]
+    lanes = -(-s // 32) * 32
+    kk = torch.nn.functional.pad(k.float().view(n, c, s), (0, lanes - s))
+    aa = torch.nn.functional.pad(alpha.float(), (0, lanes - s))
+    part = kk.new_zeros((n, c, 32))
+    for t in range(0, lanes, 32):
+        part = part + kk[..., t:t + 32] * aa[:, t:t + 32]
+    for half in (16, 8, 4, 2, 1):
+        part = part[..., :half] + part[..., half:2 * half]
+    scores = part[..., 0].T.contiguous()                  # (C, n)
+    if binary:
+        v = scores[0]
+        return scores, torch.where(v > 0, 1.0, torch.where(v < 0, -1.0, v))
+    best, arg = scores[0], torch.zeros(n, dtype=torch.int32, device=k.device)
+    for q in range(1, c):
+        v = scores[q]
+        better = (v > best) | (torch.isnan(v) & ~torch.isnan(best))
+        best = torch.where(better, v, best)
+        arg = torch.where(better, q, arg).to(torch.int32)
+    return scores, arg
+
+
 def _kappa_pow(kappa, expo):
     """kappa**expo as exp(expo log kappa) (``core.merge_math.kappa_pow``)."""
     return torch.exp(expo * _safe_log(kappa))

@@ -134,10 +134,12 @@ def test_cpu_path_launches_no_kernel():
     x = torch.zeros(4, 3)
     ops.rbf_matrix(x, x, 1.0)
     ops.gss_solve(torch.rand(5), torch.rand(5), n_iters=10)
+    ops.class_scores(x, torch.zeros(2, 5, 3), torch.ones(2, 5), 1.0)
     assert ops.launch_counts() == {"rbf_matrix": 0, "merge_scores": 0, "merge_pick": 0,
                                    "gss": 0, "gss_pick": 0, "multi_merge_scores": 0,
                                    "multi_merge_choose": 0,
-                                   "merge_event": 0, "merge_event_rounds": 0, "train_step": 0}
+                                   "merge_event": 0, "merge_event_rounds": 0, "train_step": 0,
+                                   "class_scores": 0}
 
 
 @pytest.fixture(scope="module")
