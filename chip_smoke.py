@@ -15,9 +15,10 @@ non-zero exit code:
      where one exists, one PyTorch library call; ``merge_pick`` bit for bit
      at the binary path's shape, on rows, ragged, with exact score ties and
      with rows that have no valid candidate; the wrappers' raw stream against
-     ``torch.cuda.current_stream()``; and the host time of one
-     ``merge_scores`` call part by part, each part as it was before the lean
-     launch path and as it is now;
+     ``torch.cuda.current_stream()``; the host time of one ``merge_scores``
+     call part by part, each part as it was before the lean launch path and
+     as it is now; and ``rbf_thin``/``rbf_tiled`` on rows holding a NaN or
+     an Inf, NaN exactly where the plain version has NaN;
   4. the main path: ``fit`` for one epoch and ``accuracy`` on an ADULT
      stand-in at the LIBSVM a9a training set's size (32,561 x 123, two
      Gaussian blobs from a numpy seed, 20% test split), gamma 2^-7,
@@ -88,7 +89,32 @@ non-zero exit code:
      sync and the async queue, each bank (every launch counter 0 before and
      read after), with no kernel library loaded and no device memory
      reserved after the warm-up; labels equal ``predict_multiclass`` and
-     accuracy run (c)'s; a checkpoint written and served back bit-equal.
+     accuracy run (c)'s; a checkpoint written and served back bit-equal;
+ 16. streaming (after phase 14), every time and byte count beside the card's
+     name and power limit: (a) run (c)'s configuration streamed from the
+     60,000 training rows written as 15 npz chunks of 4,100 rows (rows carry
+     across every boundary) by ``fit_multiclass_stream`` with ``prefetch=2``
+     and ``0``, bit-equal to each other and to ``train_epoch_multiclass`` on
+     ``epoch_permutation``, and replayed from CUDA graphs (``cuda_graph``)
+     bit-equal too; µs a step, peak device bytes, a profiled window of two
+     chunks; (b) killed after 7 chunks and resumed, then resumed past a torn
+     newest step, bit-equal to (a); (c) a faulty source (transient IO
+     errors, truncated reads, chunk 4 fatal) bit-equal to the clean run
+     without chunk 4, and a NaN/Inf chunk under ``guard_finite`` rolled back
+     exactly where the plain version (``impl="ref"``) rolls it back, with
+     the guard's cost a chunk; (d) the binary
+     paper path (``lookup-wd``, batch 1, no cache) streamed over the ADULT
+     stand-in in 2,048-row chunks (a ``CUT:`` line: 4 chunks) bit-equal to
+     ``train_epoch``, the binary fused epoch streamed whole bit-equal to its
+     in-memory twin, and ``LibsvmChunks`` bit-equal to ``ArrayChunks`` of the
+     same rows; (e) ``prequential_stream`` on the ADULT stand-in with a label
+     flip from the middle chunk, twice, identical; (f) the ``--live``
+     trainer's CUDA-graph chunk programs bit-equal to the eager ones over two
+     chunks, with equal launch counts, then ``serve_svm_live`` at MNIST width
+     over the 60,000 rows with its trace submitted at once, as the CLI does,
+     and more than one version served, then its chaos drill (a ``CUT:`` line)
+     with a trainer restart.  Every
+     launch counter is 0 before each streamed run and read after it.
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 It imports nothing from the JAX package.  Without a CUDA device, or without
@@ -219,9 +245,11 @@ def bound_ms(n_bytes: float, n_flops: float):
 def phase_card():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout
-    print(out.strip().splitlines()[0])
+    card = out.strip().splitlines()[0]
+    print(card)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    return card
 
 
 def phase_build(_build):
@@ -295,6 +323,32 @@ def rbf_cutover(ref, gen):
               f"{'thin' if n <= rbf_kernel.THIN_ROWS else 'tiled'}")
 
 
+def rbf_nonfinite(ref, gen):
+    """rbf_thin and rbf_tiled on rows holding a NaN, an Inf or a -Inf, against
+    the plain version on the same card tensors: NaN exactly where the plain
+    version has NaN (a NaN distance stays NaN through the clamp), every other
+    value within 1e-5."""
+    from repro_torch.kernels import rbf_kernel
+    dev = torch.device("cuda")
+    d, gamma = 123, 2.0 ** -7
+    y = torch.randn(301, d, generator=gen)
+    y[5, 7], y[9, 0] = float("nan"), float("inf")
+    for n, path in ((8, "thin"), (48, "tiled")):
+        x = torch.randn(n, d, generator=gen)
+        x[1, 3], x[2, 4], x[3, 5] = float("nan"), float("inf"), -float("inf")
+        xd, yd = x.to(dev), y.to(dev)
+        got = rbf_kernel.rbf_matrix_cuda(xd, yd, gamma, path=path)
+        want = ref.rbf_matrix(xd, yd, gamma)
+        nan_same = bool(torch.equal(got.isnan(), want.isnan()))
+        rest = ~want.isnan()
+        err = (got[rest] - want[rest]).abs().max().item()
+        print(f"rbf_matrix {path} {n}x301x{d} with NaN/Inf rows: NaN where the plain version "
+              f"has NaN {nan_same} ({int(want.isnan().sum())} entries), max_abs_err elsewhere "
+              f"{err:.3e} (tol 1e-5)")
+        check(nan_same and err <= 1e-5, f"rbf_matrix {path} on non-finite rows: NaN pattern "
+              f"equal {nan_same}, error {err}")
+
+
 def _rbf_work(n, m, d, elem, y_elem=None):
     """(bytes, operations) of one rbf_matrix call: each operand read once
     (x's elements ``elem`` bytes, y's ``y_elem``, default the same), the
@@ -311,6 +365,7 @@ def phase_kernels(ops, ref, _build, table):
     gen = torch.Generator().manual_seed(SEED)
     records = check_rbf(ops, ref, RBF_SHAPES, gen)
     rbf_cutover(ref, gen)
+    rbf_nonfinite(ref, gen)
 
     # merge_scores: 501 candidates against the 400 x 400 table
     wd_table = table.wd_table.to(dev)
@@ -2094,6 +2149,424 @@ def phase_serve(core, ops, ref, mc, data, run_c):
     return {"class_scores": record}, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 16: streaming
+# ---------------------------------------------------------------------------
+
+STREAM_CHUNK_ROWS = 4_100              # = 512 * 8 + 4: rows carry across every boundary
+BINARY_CHUNK_ROWS = 2_048
+BINARY_MAX_CHUNKS = 4                  # leg (d)'s composed stream: 8,192 of 26,049 steps
+LIBSVM_ROWS = 4_096
+# leg (f): serve_svm_live at MNIST width over the whole 60,000 rows, one
+# snapshot a chunk, its trace of LIVE_ROWS rows submitted at once as the CLI
+# does; the arm's CUDA-graph chunk programs are first held to the eager ones
+# over LIVE_EQ_CHUNKS chunks (the eager trainer, 64 merge events a step,
+# took ~70 s for the whole epoch on one H100, PERF.md)
+LIVE_TRAIN_ROWS = MC_TRAIN
+LIVE_ROWS = 400_000
+LIVE_PUBLISH_EVERY = 1
+LIVE_EQ_CHUNKS = 2
+LIVE_DRILL_TRAIN_ROWS = 6 * STREAM_CHUNK_ROWS
+LIVE_DRILL_ROWS = 50_000
+
+
+def _states_equal(a, b) -> bool:
+    return all((u is None and v is None) or (u is not None and v is not None and u.dtype == v.dtype
+                                             and torch.equal(u, v)) for u, v in zip(a, b))
+
+
+def _timed(fn):
+    """``(result, seconds)`` of ``fn()`` on the host clock, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _peak_bytes(fn):
+    """``(result, seconds, peak bytes above what was allocated before)``."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, secs = _timed(fn)
+    return out, secs, torch.cuda.max_memory_allocated() - base
+
+
+def _launched(ops, fn):
+    """``(result, seconds, launches)`` of one main-path run, the launch
+    counters set to 0 just before it and read just after."""
+    ops.reset_launch_counts()
+    out, secs = _timed(fn)
+    return out, secs, ops.launch_counts()
+
+
+def _add(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _finite(state) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in state if t is not None and
+               t.is_floating_point())
+
+
+def stream_leg_a(core, mc, ops, sd, mc_data, src, card, counts):
+    """(a) the class axis streamed from npz shards against in-memory, the
+    same chunk programs over blocks staged on the card beforehand (the chunk
+    loops without the host pipeline), and the stream replayed from CUDA
+    graphs (``cuda_graph=True``); the five runs in the order p2, mem, p0,
+    staged, graph, graph, staged, p0, mem, p2 (host time drifts within a
+    call)."""
+    (xtr, ytr), (xte, yte) = mc_data
+    cfg = _mc_config(mc, "c")
+    dev = torch.device("cuda")
+    steps = MC_TRAIN // MC_BATCH
+    perm = sd.epoch_permutation(src, sd.EpochKey(SEED, 0))
+    table = cfg.table().to(dev)
+    stage = core.bsgd._device_stage(dev, torch.int64)
+    blocks = [b for _, b, _ in core.bsgd._assemble_chunks(
+        src, sd.EpochKey(SEED, 0), batch_size=MC_BATCH, start_chunk=0, end=src.n_chunks,
+        carry=None, stage=stage)]
+
+    def staged():
+        st = mc.init_multiclass_state(cfg, MC_DIM, device=dev)
+        for b in blocks:
+            st = mc.train_chunk_multiclass(cfg, table, st, *b)
+        return st
+
+    fits = {2: lambda: mc.fit_multiclass_stream(cfg, src, epochs=1, seed=SEED, prefetch=2),
+            0: lambda: mc.fit_multiclass_stream(cfg, src, epochs=1, seed=SEED, prefetch=0),
+            "mem": lambda: mc.train_epoch_multiclass(cfg, table, mc.init_multiclass_state(
+                cfg, MC_DIM, device=dev), xtr, ytr, perm, device=dev),
+            "staged": staged,
+            "graph": lambda: mc.fit_multiclass_stream(cfg, src, epochs=1, seed=SEED, prefetch=2,
+                                                      cuda_graph=True)}
+    runs, secs = {}, {k: [] for k in fits}
+    for kind in (2, "mem", 0, "staged", "graph", "graph", "staged", 0, "mem", 2):
+        ops.reset_launch_counts()
+        st, t, peak = _peak_bytes(fits[kind])
+        launches = ops.launch_counts()
+        secs[kind].append(t)
+        runs.setdefault(kind, (st, peak))
+        if kind in (0, 2, "graph"):
+            _add(counts, launches)
+            check(launches["train_step"] == steps, f"stream (a) {kind}: train_step "
+                  f"launched {launches['train_step']} times in {steps} steps")
+    us_step = {k: statistics.mean(v) / steps * 1e6 for k, v in secs.items()}
+    runs = {k: (st, us_step[k], peak) for k, (st, peak) in runs.items()}
+    mem, mem_us, mem_peak = runs["mem"]
+    acc = float(mc.accuracy_multiclass(runs[2][0], xte, yte, MC_GAMMA))
+    eq_mem = _states_equal(runs[2][0], mem)
+    eq_pre = _states_equal(runs[2][0], runs[0][0])
+    eq_staged = _states_equal(runs[2][0], runs["staged"][0])
+    eq_graph = _states_equal(runs[2][0], runs["graph"][0])
+    del blocks
+    load_ms = []
+    for cid in (0, src.n_chunks // 2, src.n_chunks - 1):
+        t0 = time.perf_counter()
+        src.load(cid)
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"stream (a) {card}: fit_multiclass_stream over {src.n_chunks} npz chunks "
+          f"({src.chunk_lens[0]} rows, last {src.chunk_lens[-1]}), {steps} steps, mean of two "
+          f"runs each: prefetch=2 {runs[2][1]:.1f} us/step, prefetch=0 {runs[0][1]:.1f} us/step, "
+          f"in-memory train_epoch_multiclass {mem_us:.1f} us/step, the chunk programs over "
+          f"blocks staged beforehand {runs['staged'][1]:.1f} us/step, replayed from CUDA graphs "
+          f"(prefetch=2) {runs['graph'][1]:.1f} us/step (as p2 p2 mem mem p0 p0 staged staged "
+          f"graph graph: {[round(t / steps * 1e6, 1) for k in (2, 'mem', 0, 'staged', 'graph') for t in secs[k]]}"
+          f"); chunk load (FileChunks.load) "
+          f"{statistics.mean(load_ms):.1f} ms; test accuracy {acc:.4f}")
+    print(f"stream (a) {card}: peak device bytes above the resting state: streamed "
+          f"(prefetch=2) {runs[2][2]}, prefetch=0 {runs[0][2]}, in-memory {mem_peak} "
+          f"(a chunk {src.chunk_lens[0] * MC_DIM * 4} bytes of rows, the set "
+          f"{MC_TRAIN * MC_DIM * 4})")
+    print(f"stream (a): bit-equal to in-memory on epoch_permutation {eq_mem}; prefetch=0 "
+          f"bit-equal to prefetch=2 {eq_pre}; staged blocks bit-equal {eq_staged}; CUDA graphs "
+          f"bit-equal {eq_graph}")
+    check(eq_mem, "stream (a): the streamed epoch differs from the in-memory epoch")
+    check(eq_graph, "stream (a): the stream replayed from CUDA graphs differs from the eager one")
+    check(eq_pre, "stream (a): prefetch=0 differs from prefetch=2")
+    check(eq_staged, "stream (a): the staged chunk programs differ from the stream")
+    check(acc >= 0.80, f"stream (a): accuracy {acc} below the 0.80 sanity floor")
+
+    # a profiled window of two chunks, from the streamed state
+    box = [runs[2][0]]
+
+    def two_chunks(_):
+        st = core.bsgd._owned(box[0])
+        box[0], _, _ = mc.train_epoch_multiclass_stream(cfg, table, st, src,
+                                                        key=sd.EpochKey(SEED, 1), max_chunks=2,
+                                                        prefetch=2)
+
+    order = sd.chunk_order(sd.EpochKey(SEED, 1), src.n_chunks)
+    n_steps = (src.chunk_lens[order[0]] + src.chunk_lens[order[1]]) // MC_BATCH
+    _profile(two_chunks, 1, f"stream (a) two chunks, prefetch=2 ({card})",
+             steps_per_call=n_steps)
+    return runs[2][0], runs[2][1], mem_us
+
+
+def stream_leg_b(mc, sd, src, want, ckpt_root, card, counts, ops):
+    """(b) kill after 7 chunks, resume; then resume past a torn newest step."""
+    from repro_torch import checkpoint
+    cfg = _mc_config(mc, "c")
+    ck = str(ckpt_root / "ck")
+    fit = lambda **kw: mc.fit_multiclass_stream(cfg, src, epochs=1, seed=SEED, prefetch=2,
+                                                ckpt_dir=ck, ckpt_every=3, **kw)
+    _, secs1, l1 = _launched(ops, lambda: fit(max_chunks=7))
+    steps_after_kill = checkpoint.all_steps(ck)
+    resumed, secs2, l2 = _launched(ops, fit)
+    _add(counts, l1)
+    _add(counts, l2)
+    eq = _states_equal(resumed, want)
+    steps = checkpoint.all_steps(ck)
+    newest = steps[-1]
+    arrays = Path(ck) / f"step_{newest:08d}" / "arrays.npz"
+    with open(arrays, "r+b") as f:
+        f.truncate(arrays.stat().st_size // 2)
+    walked = checkpoint.latest_verifiable_step(ck)
+    again, secs3, l3 = _launched(ops, fit)
+    _add(counts, l3)
+    eq2 = _states_equal(again, want)
+    print(f"stream (b) {card}: killed after 7 chunks (checkpoints {steps_after_kill}), resumed "
+          f"bit-equal to (a) {eq} ({secs1:.3f} s + {secs2:.3f} s); newest step {newest} torn, "
+          f"resume walked back to step {walked} and ended bit-equal {eq2} ({secs3:.3f} s)")
+    check(steps_after_kill == [3, 6], f"stream (b): checkpoints {steps_after_kill} after the kill")
+    check(eq, "stream (b): kill and resume differs from the uninterrupted run")
+    check(walked == steps[-2], f"stream (b): walked back to {walked}, not {steps[-2]}")
+    check(eq2, "stream (b): resume past a torn step differs from the uninterrupted run")
+
+
+def stream_leg_c(core, mc, sd, src, want, card, counts, ops):
+    """(c) faults: retries and a quarantine against skip_chunks; a NaN chunk
+    under the finite guard."""
+    cfg = _mc_config(mc, "c")
+    rep = sd.ResilienceReport()
+    faulty = sd.FaultyChunks(src, sd.FaultSchedule(seed=0, p_io=0.2, p_truncate=0.1,
+                                                   fatal_chunks=(4,)))
+    got, secs, l1 = _launched(ops, lambda: mc.fit_multiclass_stream(
+        cfg, faulty, epochs=1, seed=SEED, prefetch=2, retry=sd.RetryPolicy(base_delay_s=0.0),
+        report=rep))
+    clean, _, l2 = _launched(ops, lambda: mc.fit_multiclass_stream(
+        cfg, src, epochs=1, seed=SEED, prefetch=2, skip_chunks=(4,)))
+    _add(counts, l1)
+    _add(counts, l2)
+    eq = _states_equal(got, clean)
+    print(f"stream (c) {card}: faulty source {rep!r}, quarantined {rep.quarantined_chunks()}; "
+          f"bit-equal to the clean run with skip_chunks=(4,) {eq} ({secs:.3f} s)")
+    check(eq, "stream (c): the faulty run differs from the clean run over the same chunks")
+    check(rep.quarantined_chunks() == [4], f"stream (c): quarantined {rep.quarantined_chunks()}")
+    check(rep.retries > 0, "stream (c): no retry happened")
+
+    rep = sd.ResilienceReport()
+    nan_src = sd.FaultyChunks(src, sd.FaultSchedule(nan_chunks=(2,)))
+    guarded, secs, l3 = _launched(ops, lambda: mc.fit_multiclass_stream(
+        cfg, nan_src, epochs=1, seed=SEED, prefetch=2, guard_finite=True, report=rep))
+    _add(counts, l3)
+    # the stream positions whose minibatches hold a NaN/Inf row: chunk 2's,
+    # and the next chunk's where a poisoned row lands in the carried rows
+    pos = int(np.nonzero(sd.chunk_order(sd.EpochKey(SEED, 0), src.n_chunks) == 2)[0][0])
+    poisoned = [p for p, block, _ in core.bsgd._assemble_chunks(
+        nan_src, sd.EpochKey(SEED, 0), batch_size=MC_BATCH, start_chunk=0, end=src.n_chunks,
+        carry=None) if block is not None and not np.isfinite(block.x).all()]
+    # what the plain version decides on the same rows: the guarded stream
+    # with impl="ref" on the same card, through the last poisoned position
+    # (no later position holds a NaN/Inf row)
+    plain_rep = sd.ResilienceReport()
+    _, plain_secs = _timed(lambda: mc.fit_multiclass_stream(
+        cfg, nan_src, epochs=1, seed=SEED, guard_finite=True, report=plain_rep, impl="ref",
+        max_chunks=max(poisoned) + 1))
+    print(f"stream (c) {card}: NaN/Inf rows in chunk 2 (stream position {pos}; minibatches with a "
+          f"NaN/Inf row at positions {poisoned}) under guard_finite: rollbacks {rep.rollbacks}, "
+          f"the plain version's (impl='ref', positions 0 to {max(poisoned)}, {plain_secs:.3f} s) "
+          f"{plain_rep.rollbacks}; every float leaf finite {_finite(guarded)} ({secs:.3f} s)")
+    check(rep.rollbacks == plain_rep.rollbacks,
+          f"stream (c): rollbacks {rep.rollbacks}, the plain version's {plain_rep.rollbacks}")
+    check(_finite(guarded), "stream (c): a float leaf is not finite after the guarded run")
+
+    # the guard's cost a chunk: one clone of every leaf and one scalar read
+    reps = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        snap = core.bsgd._owned(want)
+        core.bsgd._all_finite(snap)
+    secs = (time.perf_counter() - t0) / reps
+    n_bytes = sum(t.numel() * t.element_size() for t in want if t is not None)
+    print(f"stream (c) {card}: guard cost a chunk {secs * 1e6:.1f} us (clone of {n_bytes} bytes "
+          f"and one all-finite read), against a chunk of {STREAM_CHUNK_ROWS // MC_BATCH} steps")
+
+
+def stream_leg_d(core, ops, sd, data, tmp, card, counts):
+    """(d) the binary paper path streamed; the fused binary epoch; LibsvmChunks."""
+    (xtr, ytr), (xte, yte) = data
+    dev = torch.device("cuda")
+    src = sd.ArrayChunks(xtr, ytr, BINARY_CHUNK_ROWS)
+    perm = sd.epoch_permutation(src, sd.EpochKey(SEED, 0))
+    cfg = core.BSGDConfig(budget=BUDGET, lambda_=1e-5, gamma=2.0 ** -7, batch_size=1)
+    n = BINARY_MAX_CHUNKS * BINARY_CHUNK_ROWS
+    print(f"CUT: stream (d) composed lookup-wd streams {BINARY_MAX_CHUNKS} of {src.n_chunks} "
+          f"chunks ({n} of {xtr.shape[0]} steps)")
+    st, secs, launches = _launched(ops, lambda: core.fit_stream(
+        cfg, src, epochs=1, seed=SEED, max_chunks=BINARY_MAX_CHUNKS, prefetch=2))
+    _add(counts, launches)
+    table = cfg.table().to(dev)
+    mem, mem_secs = _timed(lambda: core.train_epoch(cfg, table, core.init_state(cfg, DIM),
+                                                    xtr, ytr, perm[:n]))
+    eq = _states_equal(st, mem)
+    print(f"stream (d) {card}: composed lookup-wd, {n} steps streamed {secs / n * 1e6:.1f} "
+          f"us/step, in-memory {mem_secs / n * 1e6:.1f} us/step; bit-equal {eq}; count "
+          f"{int(st.count)} n_merges {int(st.n_merges)}; launches {json.dumps(launches)}")
+    check(eq, "stream (d): the composed stream differs from train_epoch on the same order")
+    check(launches["merge_pick"] == n and launches["rbf_matrix"] > 0,
+          f"stream (d): merge_pick {launches['merge_pick']} in {n} steps")
+
+    fcfg = core.BSGDConfig(budget=BUDGET, lambda_=1e-5, gamma=2.0 ** -7, batch_size=1,
+                           use_kernel_cache=True, step_engine="pallas")
+    steps = xtr.shape[0]
+    fst, fsecs, flaunch = _launched(ops, lambda: core.fit_stream(fcfg, src, epochs=1, seed=SEED,
+                                                                 prefetch=2))
+    _add(counts, flaunch)
+    ftable = fcfg.table().to(dev)
+    fmem, fmem_secs = _timed(lambda: core.train_epoch(fcfg, ftable, core.init_state(fcfg, DIM),
+                                                      xtr, ytr, perm))
+    feq = _states_equal(fst, fmem)
+    acc = float(core.accuracy(fst, xte, yte, fcfg.gamma))
+    print(f"stream (d) {card}: binary fused step, whole epoch ({steps} steps) streamed "
+          f"{fsecs / steps * 1e6:.1f} us/step, in-memory {fmem_secs / steps * 1e6:.1f} us/step; "
+          f"bit-equal {feq}; accuracy {acc:.4f}")
+    check(feq, "stream (d): the fused binary stream differs from its in-memory twin")
+    check(flaunch["train_step"] == steps, f"stream (d): train_step {flaunch['train_step']}")
+
+    path = str(tmp / "adult.libsvm")
+    t0 = time.perf_counter()
+    sd.dump_libsvm(path, xtr[:LIBSVM_ROWS], ytr[:LIBSVM_ROWS])
+    dump_s = time.perf_counter() - t0
+    lsrc = sd.LibsvmChunks(path, BINARY_CHUNK_ROWS, DIM)
+    t0 = time.perf_counter()
+    xp, yp = zip(*[lsrc.load(i) for i in range(lsrc.n_chunks)])
+    parse_ms = (time.perf_counter() - t0) / lsrc.n_chunks * 1e3
+    arr = sd.ArrayChunks(np.concatenate(xp), np.concatenate(yp), BINARY_CHUNK_ROWS)
+    lst, _, l1 = _launched(ops, lambda: core.fit_stream(fcfg, lsrc, epochs=1, seed=SEED,
+                                                        prefetch=2))
+    ast, _, l2 = _launched(ops, lambda: core.fit_stream(fcfg, arr, epochs=1, seed=SEED))
+    _add(counts, l1)
+    _add(counts, l2)
+    leq = _states_equal(lst, ast)
+    print(f"stream (d) {card}: LibsvmChunks of {LIBSVM_ROWS} rows ({lsrc.n_chunks} chunks, dump "
+          f"{dump_s:.3f} s): parse {parse_ms:.1f} ms a chunk; bit-equal to the ArrayChunks "
+          f"stream of the same rows {leq}")
+    check(leq, "stream (d): the LibsvmChunks stream differs from ArrayChunks")
+    return fsecs / steps * 1e6, fmem_secs / steps * 1e6
+
+
+def stream_leg_e(core, ops, sd, data, card, counts):
+    """(e) prequential on the drifted ADULT stand-in, twice."""
+    (xtr, ytr), _ = data
+    cfg = core.BSGDConfig(budget=BUDGET, lambda_=1e-5, gamma=2.0 ** -7, batch_size=1,
+                          use_kernel_cache=True, step_engine="pallas")
+    base = sd.ArrayChunks(xtr, ytr, BINARY_CHUNK_ROWS)
+    flip = sd.label_flip_schedule(base.n_chunks, start=0.5)
+    passes = []
+    for _ in range(2):
+        r, secs, launches = _launched(ops, lambda: core.prequential_stream(
+            cfg, sd.DriftChunks(base, flip=flip, seed=SEED)))
+        _add(counts, launches)
+        passes.append((r, secs, launches))
+    a, b = passes[0][0], passes[1][0]
+    same = (a["mistakes"] == b["mistakes"] and a["chunk_acc"] == b["chunk_acc"]
+            and _states_equal(a["state"], b["state"]))
+    mid = int(0.5 * base.n_chunks)
+    pre, post = np.mean(a["chunk_acc"][1:mid]), np.mean(a["chunk_acc"][mid:])
+    print(f"stream (e) {card}: prequential over {base.n_chunks} chunks, label flip from chunk "
+          f"{mid}: mistake rate {a['mistake_rate']}, mean chunk accuracy before {pre:.4f} after "
+          f"{post:.4f}; {passes[0][1]:.3f} s a pass; two passes identical {same}; launches "
+          f"{json.dumps(passes[0][2])}")
+    check(same, "stream (e): two prequential passes differ")
+    check(post < pre, "stream (e): accuracy after the drift point is not below before")
+    check(passes[0][2]["train_step"] > 0 and passes[0][2]["rbf_matrix"] > 0,
+          "stream (e): train_step or rbf_matrix never launched")
+
+
+def stream_leg_f(mc, ops, sd, card, counts):
+    """(f) serve_svm_live at MNIST width: the live trainer's chunk programs
+    replayed from CUDA graphs against the eager ones, the arm with its trace
+    submitted at once, then the chaos drill."""
+    from repro_torch.launch.serve import live_problem, serve_svm_live
+    shape = dict(n_classes=MC_CLASSES, dim=MC_DIM, budget=MC_BUDGET, gamma=MC_GAMMA,
+                 chunk_rows=STREAM_CHUNK_ROWS, seed=SEED)
+    live = dict(epochs=1, publish_every=LIVE_PUBLISH_EVERY, verbose=False, **shape)
+
+    cfg, source = live_problem(train_rows=LIVE_EQ_CHUNKS * STREAM_CHUNK_ROWS, **shape)
+    eager, esecs, el = _launched(ops, lambda: mc.fit_multiclass_stream(
+        cfg, source, epochs=1, seed=SEED, prefetch=2))
+    graphed, gsecs, gl = _launched(ops, lambda: mc.fit_multiclass_stream(
+        cfg, source, epochs=1, seed=SEED, prefetch=2, cuda_graph=True))
+    _add(counts, el)
+    _add(counts, gl)
+    eq = _states_equal(eager, graphed)
+    print(f"stream (f) {card}: the live trainer over {LIVE_EQ_CHUNKS} chunks: eager {esecs:.3f} "
+          f"s, CUDA graphs {gsecs:.3f} s (captures included); bit-equal {eq}; launches equal "
+          f"{el == gl} ({json.dumps(gl)})")
+    check(eq, "stream (f): the live trainer's CUDA-graph chunk programs differ from the eager ones")
+    check(el == gl, f"stream (f): launches eager {el}, CUDA graphs {gl}")
+
+    res, secs, launches = _launched(ops, lambda: serve_svm_live(
+        train_rows=LIVE_TRAIN_ROWS, rows=LIVE_ROWS, **live))
+    _add(counts, launches)
+    print(f"stream (f) {card}: serve_svm_live, {LIVE_TRAIN_ROWS} training rows, {res['rows']} "
+          f"request rows submitted at once, whole run {secs:.3f} s: versions served "
+          f"{res.get('versions')} ({res['published_during_trace']} published during the trace, "
+          f"final v{res['final_version']}), {res['rows_per_s']} rows/s, p50 {res['p50_ms']} ms "
+          f"p99 {res['p99_ms']} ms, pad waste {res['pad_waste_frac']}; final snapshot finite, "
+          f"queue == direct on {res['final_check_rows']} rows; launches {json.dumps(launches)}")
+    check(len(res.get("versions", {})) > 1,
+          f"stream (f): one version served: {res.get('versions')}")
+    for k in ("rbf_matrix", "merge_pick", "class_scores"):
+        check(launches[k] > 0, f"stream (f): {k} never launched")
+
+    print(f"CUT: stream (f) chaos drill trains {LIVE_DRILL_TRAIN_ROWS} rows and serves "
+          f"{LIVE_DRILL_ROWS}")
+    faults = sd.FaultSchedule.chaos(SEED, nan_chunk=2, crash_chunk=3, fatal_chunk=5)
+    drill, secs, launches = _launched(ops, lambda: serve_svm_live(
+        train_rows=LIVE_DRILL_TRAIN_ROWS, rows=LIVE_DRILL_ROWS, faults=faults, **live))
+    _add(counts, launches)
+    print(f"stream (f) {card}: chaos drill in {secs:.3f} s: restarts {drill['restarts']}, retries "
+          f"{drill['retries']}, quarantined {drill['quarantined']}, rollbacks "
+          f"{drill['rollbacks']}; versions served {drill.get('versions')} (final "
+          f"v{drill['final_version']}), {drill['rows']} rows, {drill['rows_per_s']} rows/s")
+    check(drill["restarts"] >= 1, "stream (f): the drill's trainer never restarted")
+    check(drill["rows"] == LIVE_DRILL_ROWS, "stream (f): the drill did not serve every row")
+    check(5 in drill["quarantined"], f"stream (f): quarantined {drill['quarantined']}")
+
+
+def phase_stream(core, mc, ops, data, mc_data, card):
+    """Phase 16: streaming at full width; returns its launches by kernel."""
+    import tempfile
+    from repro_torch import data as sd
+    from repro_torch.kernels import _build
+    counts = {}
+    (xtr, ytr), _ = mc_data
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as d:
+        tmp = Path(d)
+        t0 = time.perf_counter()
+        paths = sd.write_npz_chunks(str(tmp / "mnist"), xtr, ytr, STREAM_CHUNK_ROWS)
+        size = sum(Path(p).stat().st_size for p in paths)
+        print(f"stream {card}: wrote {len(paths)} npz chunks, {size} bytes, in "
+              f"{time.perf_counter() - t0:.3f} s")
+        src = sd.FileChunks(paths)
+        want, mc_us, mc_mem_us = stream_leg_a(core, mc, ops, sd, mc_data, src, card, counts)
+        stream_leg_b(mc, sd, src, want, tmp, card, counts, ops)
+        stream_leg_c(core, mc, sd, src, want, card, counts, ops)
+        b_us, b_mem_us = stream_leg_d(core, ops, sd, data, tmp, card, counts)
+        stream_leg_e(core, ops, sd, data, card, counts)
+    stream_leg_f(mc, ops, sd, card, counts)
+    print(f"stream {card}: streamed against in-memory us/step: class axis run (c) {mc_us:.1f} "
+          f"vs {mc_mem_us:.1f}, binary fused {b_us:.1f} vs {b_mem_us:.1f}")
+    print(f"stream runs' launches: {json.dumps(counts)}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -2115,7 +2588,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     with Phase("1 card"):
-        phase_card()
+        card = phase_card()
     with Phase("2 build"):
         phase_build(_build)
     with Phase("3 kernels vs plain"):
@@ -2161,6 +2634,8 @@ def main() -> int:
         phase_fused_profile(core, mc, fused_runs, binary_fused, data, mc_data)
     with Phase("14 multi_merge_choose lockstep"):
         phase_choose_lockstep(mc, budget_mod, mc_data, mc_runs["b"])
+    with Phase("16 streaming"):
+        stream_counts = phase_stream(core, mc, ops, data, mc_data, card)
 
     # launches on the main paths: the binary runs of phase 4 (rbf_matrix,
     # merge_pick, gss_pick, and merge_scores and gss, now 0) and the
@@ -2172,6 +2647,8 @@ def main() -> int:
     counts["train_step"] = (binary_fused[0]["launches"]["train_step"]
                             + sum(r[0]["launches"]["train_step"] for r in fused_runs.values()))
     counts["class_scores"] = serve_counts["class_scores"]
+    for name, n in stream_counts.items():     # phase 16's streamed paths
+        counts[name] += n
     meta = {
         "rbf_matrix": ("src/repro_torch/csrc/rbf_kernel.cu", "src/repro/kernels/rbf_kernel.py:57"),
         "merge_scores": ("src/repro_torch/csrc/merge_lookup.cu",

@@ -236,10 +236,12 @@ def _stored_dtype_ok(arr: np.ndarray, name: str) -> bool:
 
 
 def _to_torch(arr: np.ndarray, name: str) -> torch.Tensor:
-    """A stored leaf as a CPU tensor of its manifest dtype."""
+    """A stored leaf as a CPU tensor of its manifest dtype and shape (a 0-d
+    leaf stays 0-d: ``np.ascontiguousarray`` alone returns at least 1-d)."""
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
     if name == _BF16:
-        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(arr))
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def load(ckpt_dir: str, step: int, target_tree, *, device=None):

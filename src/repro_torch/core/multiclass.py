@@ -19,8 +19,9 @@ Prediction is the argmax over the C decision functions, scored by the serve
 cell (``kernels.ops.class_scores``: one kernel block, then one contraction
 launch), the route ``core.predict`` serves through.  ``fit_multiclass_loop`` trains
 the classes one after the other: the baseline the batched engine is measured
-against.  The streaming entry points (``train_chunk_multiclass`` and those built
-on it) are not ported yet (ROADMAP.md Queue 1 item 8).
+against.  ``train_chunk_multiclass``, ``train_epoch_multiclass_stream`` and
+``fit_multiclass_stream`` stream the class axis over a chunk source through
+``core.bsgd``'s streaming drivers.
 """
 from __future__ import annotations
 
@@ -29,8 +30,9 @@ import dataclasses
 import torch
 
 from . import budget as budget_mod
-from .bsgd import (BSGDConfig, SVMState, _owned, _tensor, _to, fit, init_state,
-                   insert_from_rows, resolve_device)
+from .bsgd import (BSGDConfig, SVMState, _ChunkGraphs, _device_stage, _fit_stream, _make_guard, _make_publish,
+                   _owned, _stream_epoch, _sync, _tensor, _to, fit, init_state, insert_from_rows,
+                   resolve_device)
 from ..kernels import ops as kops
 
 
@@ -205,6 +207,85 @@ def fit_multiclass(cfg: MulticlassSVMConfig, x, y, *, epochs: int = 1, seed: int
         perm = torch.randperm(x.shape[0], generator=gen)
         state = train_epoch_multiclass(cfg, table, state, x, y, perm, impl=impl, device=dev)
     return state
+
+
+def train_chunk_multiclass(cfg: MulticlassSVMConfig, table, state: SVMState, xc, yc, *,
+                           impl: str = "auto") -> SVMState:
+    """One resident chunk of the one-vs-rest engine: ``xc: (steps, batch,
+    dim)``, ``yc: (steps, batch)`` class ids, through ``train_epoch_multiclass``'s
+    steps (cf. ``bsgd.train_chunk``: with ``step_engine="pallas"`` the state
+    is updated in place, and nothing reads the device back)."""
+    dev = state.alpha.device
+    table = None if table is None else table.to(dev)
+    xc, yc = _tensor(xc, dev), _tensor(yc, dev, torch.int64)
+    step_fn = (_fused_step_multiclass_ if cfg.binary.step_engine == "pallas"
+               else train_step_multiclass)
+    for i in range(xc.shape[0]):
+        state = step_fn(cfg, table, state, xc[i], yc[i], impl=impl)
+    return state
+
+
+def train_epoch_multiclass_stream(cfg: MulticlassSVMConfig, table, state: SVMState, source, *,
+                                  key=None, impl: str = "auto", start_chunk: int = 0,
+                                  carry=None, on_chunk=None, max_chunks: int | None = None,
+                                  chunk_fn=None, prefetch: int = 0, retry=None, report=None,
+                                  skip_chunks=()):
+    """One streamed pass of the one-vs-rest engine over a chunk source.
+
+    The class-axis counterpart of ``bsgd.train_epoch_stream``, with the same
+    chunk-carry contract (``key`` order, the state updated in place by the
+    fused step, remainder carry, ``prefetch`` staging, ``(state, next_chunk,
+    carry)`` return); labels are integer class ids in [0, C)."""
+    stage = None
+    if chunk_fn is None:
+        stage = _device_stage(state.alpha.device, torch.int64)
+        table = None if table is None else table.to(state.alpha.device)
+
+        def chunk_fn(st, xc, yc):
+            return train_chunk_multiclass(cfg, table, st, xc, yc, impl=impl)
+    state, next_chunk, carry, _ = _stream_epoch(
+        chunk_fn, state, source, batch_size=cfg.binary.batch_size, key=key,
+        start_chunk=start_chunk, carry=carry, on_chunk=on_chunk, max_chunks=max_chunks,
+        prefetch=prefetch, stage=stage, retry=retry, report=report, skip_chunks=skip_chunks)
+    if next_chunk == source.n_chunks:
+        _sync(state)
+    return state, next_chunk, carry
+
+
+def fit_multiclass_stream(cfg: MulticlassSVMConfig, source, *, epochs: int = 1, seed: int = 0,
+                          impl: str = "auto", state: SVMState | None = None,
+                          ckpt_dir: str | None = None, ckpt_every: int = 0,
+                          max_chunks: int | None = None, keep_last: int = 3, chunk_fn=None,
+                          prefetch: int = 0, bank=None, publish_every: int = 0,
+                          publish_dtype=None, retry=None, guard_finite: bool = False,
+                          debug_invariants: bool = False, report=None, skip_chunks=(),
+                          cuda_graph: bool = False, device=None) -> SVMState:
+    """Out-of-core ``fit_multiclass``: streamed shuffled epochs over a chunk
+    source of integer-labelled rows, with ``bsgd.fit_stream``'s contract
+    (``EpochKey`` order, checkpoints and bitwise resume, the copied caller
+    state, ``prefetch`` staging, ``bank``/``publish_every`` snapshots, the
+    resilience knobs and ``cuda_graph``).  Each chunk's labels are checked on the host, before
+    staging, so the check reads nothing from the device."""
+    dev = resolve_device(device)
+    state = (init_multiclass_state(cfg, source.dim, device=dev) if state is None
+             else _owned(_to(state, dev)))
+    stage = None
+    if chunk_fn is None:
+        stage = _device_stage(dev, torch.int64, check=lambda yc: check_labels(yc, cfg.n_classes))
+        table = cfg.table()
+        table = None if table is None else table.to(dev)
+
+        def chunk_fn(st, xc, yc):
+            return train_chunk_multiclass(cfg, table, st, xc, yc, impl=impl)
+        if cuda_graph:
+            chunk_fn = _ChunkGraphs(chunk_fn)
+    return _fit_stream(cfg.binary.batch_size, source, chunk_fn, state, epochs=epochs, seed=seed,
+                       ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, max_chunks=max_chunks,
+                       keep_last=keep_last, prefetch=prefetch, stage=stage,
+                       publish=_make_publish(bank, cfg.binary.gamma, publish_dtype),
+                       publish_every=publish_every, retry=retry, report=report,
+                       skip_chunks=skip_chunks,
+                       guard=_make_guard(guard_finite, debug_invariants, cfg.binary, report))
 
 
 def fit_multiclass_loop(cfg: MulticlassSVMConfig, x, y, *, epochs: int = 1, seed: int = 0,

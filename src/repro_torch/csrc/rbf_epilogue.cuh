@@ -1,6 +1,8 @@
 // The matmul-form RBF kernel value from its three fp32 sums, shared by
 // rbf_kernel.cu and train_step.cu so that both compute the same expression:
-//   k = exp(-gamma * max(|x|^2 + |y|^2 - 2 x.y, 0)).
+//   k = exp(-gamma * max(|x|^2 + |y|^2 - 2 x.y, 0)),
+// where the clamp keeps a NaN distance NaN (as torch.clamp and jnp.maximum
+// do; fmaxf would return 0 and so k = 1 for a row holding a NaN or an Inf).
 // Each operation rounds on its own (__fadd_rn and friends are never contracted
 // into a multiply-add, whatever the file's -fmad setting), as the plain
 // PyTorch version's separate ops do.  The sums themselves are accumulated by
@@ -14,7 +16,8 @@
 namespace {
 
 __device__ __forceinline__ float rbf_from_sums(float xn, float yn, float xy, float gamma) {
-  const float d2 = fmaxf(__fsub_rn(__fadd_rn(xn, yn), __fmul_rn(2.0f, xy)), 0.0f);
+  const float d = __fsub_rn(__fadd_rn(xn, yn), __fmul_rn(2.0f, xy));
+  const float d2 = d < 0.0f ? 0.0f : d;
   return expf(__fmul_rn(-gamma, d2));
 }
 

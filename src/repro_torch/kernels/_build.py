@@ -15,11 +15,13 @@ module and has no ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -49,6 +51,13 @@ CLUSTER_SIZES = (16, 8, 4, 2, 1)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+# a trainer thread and a serving thread may ask for a library at once
+_LOAD_LOCK = threading.Lock()
+# ... and launch kernels at once: the wrappers' launch counters move under a
+# lock.  A thread capturing a CUDA graph records its launches in a tally of
+# its own instead (``recording``); they are counted at each replay.
+_COUNT_LOCK = threading.Lock()
+_CAPTURE = threading.local()
 
 
 def _nvcc() -> str:
@@ -116,8 +125,11 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if missing."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
-        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build([name])
+                lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return lib
 
 
@@ -181,6 +193,38 @@ def stream(device_index: int) -> int:
     ``cudaStream_t``, without building a ``torch.cuda.Stream`` (``chip_smoke.py``
     holds it equal to ``torch.cuda.current_stream(dev).cuda_stream``)."""
     return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+def count(scope: dict, counter: str) -> None:
+    """One launch on the wrapper counter ``counter``, a global of the module
+    whose ``globals()`` is ``scope``.  On a thread inside ``recording()`` the
+    launch only enters that tally: a graph capture launches nothing."""
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is not None:
+        key = (id(scope), counter)
+        tally[key] = (scope, counter, tally[key][2] + 1 if key in tally else 1)
+        return
+    with _COUNT_LOCK:
+        scope[counter] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect this thread's launches (a CUDA graph capture) in a tally
+    instead of the counters; ``add_counts(tally)`` counts them once."""
+    tally: dict = {}
+    _CAPTURE.tally = tally
+    try:
+        yield tally
+    finally:
+        _CAPTURE.tally = None
+
+
+def add_counts(tally: dict) -> None:
+    """Count a recorded tally's launches once (a graph replay launches them)."""
+    with _COUNT_LOCK:
+        for scope, counter, n in tally.values():
+            scope[counter] += n
 
 
 def check(status: int, what: str) -> None:

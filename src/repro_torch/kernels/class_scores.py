@@ -25,7 +25,6 @@ def class_scores_cuda(k: torch.Tensor, alpha: torch.Tensor, *, binary: bool = Fa
     (C * s, d) bank; alpha: (C, s) fp32 with inactive slots zeroed.  scores
     (C, n) fp32; labels (n,) int32 class ids (the first maximum wins), or for
     a binary model (``binary``, C = 1) the fp32 signs of its one score."""
-    global launches
     if not k.is_cuda or alpha.device != k.device:
         raise ValueError("class_scores_cuda needs k and alpha on one CUDA device")
     if k.dtype != _F32 or alpha.dtype != _F32:
@@ -45,5 +44,5 @@ def class_scores_cuda(k: torch.Tensor, alpha: torch.Tensor, *, binary: bool = Fa
         _build.dense(k).data_ptr(), _build.dense(alpha).data_ptr(), scores.data_ptr(),
         labels.data_ptr(), n, c, s, int(binary), _build.stream(k.get_device()))
     _build.check(status, "class_scores")
-    launches += 1
+    _build.count(globals(), "launches")
     return scores, labels

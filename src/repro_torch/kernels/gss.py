@@ -22,7 +22,6 @@ _dense = _build.dense
 
 def gss_cuda(m: torch.Tensor, kappa: torch.Tensor, n_iters: int) -> torch.Tensor:
     """argmax_h of the merge objective per element; m, kappa fp32 of one shape."""
-    global launches
     if not m.is_cuda or kappa.device != m.device:
         raise ValueError("gss_cuda needs m and kappa on one CUDA device")
     if m.dtype != torch.float32 or kappa.dtype != torch.float32:
@@ -39,7 +38,7 @@ def gss_cuda(m: torch.Tensor, kappa: torch.Tensor, n_iters: int) -> torch.Tensor
         m.data_ptr(), kappa.data_ptr(), h.data_ptr(), m.numel(), int(n_iters),
         _build.stream(m.get_device()))
     _build.check(status, "gss")
-    launches += 1
+    _build.count(globals(), "launches")
     return h
 
 
@@ -53,7 +52,6 @@ def gss_pick_cuda(alpha, kappa, count, i_min, a_min, n_iters: int):
     i_min``.  Returns the first-occurrence argmin of the weight degradations
     (R,) int64 (slot 0 when none is valid), its WD (R,) (3.4e38, ``>=
     NO_PARTNER``, when none is valid) and h* at the winner (R,)."""
-    global pick_launches
     dev = alpha.get_device()
     if dev < 0 or any(t.get_device() != dev for t in (kappa, count, i_min, a_min)):
         raise ValueError("gss_pick_cuda needs every input on one CUDA device")
@@ -81,5 +79,5 @@ def gss_pick_cuda(alpha, kappa, count, i_min, a_min, n_iters: int):
         _dense(i_min).data_ptr(), _dense(a_min).data_ptr(), rows, s, int(n_iters),
         j_star.data_ptr(), wd_j.data_ptr(), h_j.data_ptr(), _build.stream(dev))
     _build.check(status, "gss_pick")
-    pick_launches += 1
+    _build.count(globals(), "pick_launches")
     return j_star, wd_j, h_j

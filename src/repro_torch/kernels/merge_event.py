@@ -67,7 +67,6 @@ def merge_event_cuda(sv_x, alpha, kmat, count, over, h_table, wd_table, decision
     contiguous (C, 3) int32 tensor or None, receives each executing class's
     ``(i_min, j_star, merged)``.  ``cluster`` fixes the blocks a class
     (default ``CLUSTER``)."""
-    global launches
     c, s, d = _check_state("merge_event_cuda", sv_x, alpha, kmat, count,
                            (over, h_table, wd_table), cluster)
     if over.dtype != torch.bool:
@@ -90,7 +89,7 @@ def merge_event_cuda(sv_x, alpha, kmat, count, over, h_table, wd_table, decision
         cluster or CLUSTER, None if decisions is None else decisions.data_ptr(),
         _build.stream(sv_x.get_device()))
     _build.check(status, "merge_event")
-    launches += 1
+    _build.count(globals(), "launches")
     return sv_x, alpha, kmat
 
 
@@ -102,7 +101,6 @@ def merge_event_rounds_cuda(sv_x, alpha, kmat, count, n_events, h_table, wd_tabl
     contiguous) read and written in place: each class runs up to ``rounds``
     events, one while ``count > budget``, then ``count -= 1`` and
     ``n_events += 1``.  Returns ``(sv_x, alpha, kmat, count, n_events)``."""
-    global rounds_launches
     c, s, d = _check_state("merge_event_rounds_cuda", sv_x, alpha, kmat, count,
                            (n_events, h_table, wd_table), cluster)
     if n_events.dtype != torch.int32:
@@ -123,5 +121,5 @@ def merge_event_rounds_cuda(sv_x, alpha, kmat, count, n_events, h_table, wd_tabl
         n_events.data_ptr(), h_table.data_ptr(), wd_table.data_ptr(), g0, g1, c, s, d,
         int(rounds), int(budget), cluster or CLUSTER, _build.stream(sv_x.get_device()))
     _build.check(status, "merge_event_rounds")
-    rounds_launches += 1
+    _build.count(globals(), "rounds_launches")
     return sv_x, alpha, kmat, count, n_events

@@ -30,7 +30,6 @@ def merge_scores_cuda(alpha, kappa_row, valid, a_min, table):
     ``valid`` of one shape (..., s), fixed-partner coefficients ``a_min`` (one
     fp32 per row of s, any shape, on the same device) and ``table`` (G0, G1)
     fp32.  Invalid slots get WD 3.4e38."""
-    global launches
     dev = alpha.get_device()
     if dev < 0 or any(t.get_device() != dev for t in (kappa_row, valid, a_min, table)):
         raise ValueError("merge_scores_cuda needs every input on one CUDA device")
@@ -55,7 +54,7 @@ def merge_scores_cuda(alpha, kappa_row, valid, a_min, table):
         _dense(a_min).data_ptr(), _dense(table).data_ptr(), table.shape[0], table.shape[1], n, s,
         wd.data_ptr(), interp.data_ptr(), _build.stream(dev))
     _build.check(status, "merge_scores")
-    launches += 1
+    _build.count(globals(), "launches")
     return wd, interp
 
 
@@ -69,7 +68,6 @@ def merge_pick_cuda(alpha, kappa, count, i_min, a_min, wd_table, h_table):
     ``j != i_min``.  Returns the first-occurrence argmin of the Lookup-WD
     scores (R,) int64 (slot 0 when none is valid), its score (R,) (3.4e38,
     ``>= NO_PARTNER``, when none is valid) and the h table at the winner (R,)."""
-    global pick_launches
     dev = alpha.get_device()
     if dev < 0 or any(t.get_device() != dev
                       for t in (kappa, count, i_min, a_min, wd_table, h_table)):
@@ -100,5 +98,5 @@ def merge_pick_cuda(alpha, kappa, count, i_min, a_min, wd_table, h_table):
         _dense(h_table).data_ptr(), g0, g1, rows, s, j_star.data_ptr(), wd_j.data_ptr(),
         h_j.data_ptr(), _build.stream(dev))
     _build.check(status, "merge_pick")
-    pick_launches += 1
+    _build.count(globals(), "pick_launches")
     return j_star, wd_j, h_j

@@ -32,7 +32,6 @@ def multi_merge_scores_cuda(alpha, kappa_rows, valid, a_min, h_table, wd_table):
     kappa_rows, valid: (..., s), R rows of s; alpha: (..., s) with A rows, R a
     multiple of A (row r reads alpha row ``r // (R // A)``); a_min: R fp32;
     tables: (G0, G1) fp32 of one shape.  Invalid slots get WD 3.4e38."""
-    global launches
     dev = alpha.get_device()
     if dev < 0 or any(t.get_device() != dev
                       for t in (kappa_rows, valid, a_min, h_table, wd_table)):
@@ -62,7 +61,7 @@ def multi_merge_scores_cuda(alpha, kappa_rows, valid, a_min, h_table, wd_table):
         _dense(wd_table).data_ptr(), g0, g1, rows, s, wd.data_ptr(), h.data_ptr(),
         _build.stream(dev))
     _build.check(status, "multi_merge_scores")
-    launches += 1
+    _build.count(globals(), "launches")
     return wd, h
 
 
@@ -79,7 +78,6 @@ def multi_merge_choose_cuda(alpha, kappa_rows, a_idx, a_min, count, budget: int,
     untaken partner (int64), whether it merges or, executing without a
     partner, falls back to removal (bool, bool), and the h table at its
     partner (fp32), as ``kernels.ref.multi_merge_choose`` computes them."""
-    global choose_launches
     dev = alpha.get_device()
     if dev < 0 or any(t.get_device() != dev
                       for t in (kappa_rows, a_idx, a_min, count, h_table, wd_table)):
@@ -118,5 +116,5 @@ def multi_merge_choose_cuda(alpha, kappa_rows, a_idx, a_min, count, budget: int,
         _dense(wd_table).data_ptr(), g0, g1, c, p, s, b_idx.data_ptr(), merged.data_ptr(),
         execute.data_ptr(), h_star.data_ptr(), _build.stream(dev))
     _build.check(status, "multi_merge_choose")
-    choose_launches += 1
+    _build.count(globals(), "choose_launches")
     return b_idx, merged, execute, h_star

@@ -31,7 +31,6 @@ def rbf_matrix_cuda(x: torch.Tensor, y: torch.Tensor, gamma: float, *,
     ``path`` picks the kernel: ``"auto"`` the rule (``rbf_thin`` for n <=
     ``THIN_ROWS``), ``"thin"`` or ``"tiled"`` one of them (for measuring the
     cutover; thin takes at most ``THIN_MAX`` rows)."""
-    global launches
     if not (x.is_cuda and y.is_cuda) or x.device != y.device:
         raise ValueError("rbf_matrix_cuda needs x and y on one CUDA device")
     if x.dtype not in _DTYPES or y.dtype not in _DTYPES:
@@ -53,5 +52,5 @@ def rbf_matrix_cuda(x: torch.Tensor, y: torch.Tensor, gamma: float, *,
                 int(y.dtype == torch.bfloat16), out.data_ptr(), n, m, d, float(gamma),
                 _PATHS[path], _build.stream(x.get_device()))
     _build.check(status, "rbf_matrix")
-    launches += 1
+    _build.count(globals(), "launches")
     return out

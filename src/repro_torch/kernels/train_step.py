@@ -58,7 +58,6 @@ def train_step_cuda(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb,
     the card refuses.
     Returns the six updated tensors and ``step + 1`` as ``(sv_x, alpha,
     kmat, count, step + 1, n_inserts, n_merges)``."""
-    global launches
     dev = sv_x.device
     state = (alpha, kmat, count, n_inserts, n_merges)
     ins = (*state, step, xb, yb, k_bb, h_table, wd_table)
@@ -109,5 +108,5 @@ def train_step_cuda(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb,
         g0, g1, c, s, d, b, budget, float(lambda_), float(gamma), int(multi), p, k,
         _build.stream(sv_x.get_device()))
     _build.check(status, "train_step")
-    launches += 1
+    _build.count(globals(), "launches")
     return sv_x, alpha, kmat, count, step + 1, n_inserts, n_merges

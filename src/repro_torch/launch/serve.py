@@ -11,15 +11,24 @@ call on every run.  ``--bank-dtype bfloat16`` serves the bf16 bank.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch svm_bsgd \\
         --model ckpts/run1 --gamma 0.5 --bank-dtype bfloat16
 
+``--live`` is train-while-serve (``serve_svm_live``): a background
+``fit_multiclass_stream`` publishes snapshots into a ``ModelBank`` while an
+``AsyncBatchQueue`` serves a request trace over it; ``--faults SEED`` adds the
+chaos drill (retries, quarantine, the finite guard, a supervised restart from
+a checkpoint).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch svm_bsgd --smoke --live
+
 It runs on the card.  ``--device cpu`` runs it on the host (the CPU tests
-use it).  The train-while-serve arm (``--live``) and the language-model
-arms are not ported yet and raise ``NotImplementedError``.
+use it).  The language-model arms are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
 
 import numpy as np
+import torch
 
 
 def serve_svm(*, model_dir: str | None = None, gamma: float = 0.5, bank_dtype: str | None = None,
@@ -89,6 +98,166 @@ def serve_svm(*, model_dir: str | None = None, gamma: float = 0.5, bank_dtype: s
     return result
 
 
+# the final snapshot's bitwise gate re-serves at most this many of the
+# trace's first rows (its direct call holds (rows, C * slots) kernel values)
+LIVE_CHECK_ROWS = 16_384
+
+
+def live_problem(*, n_classes: int = 4, budget: int = 32, dim: int = 16, gamma: float = 0.5,
+                 train_rows: int = 4096, chunk_rows: int = 512, seed: int = 0):
+    """The ``--live`` arm's trainer config and chunk source: ``n_classes``
+    Gaussian blobs (numpy seed ``seed``) in ``chunk_rows``-row chunks,
+    batch ``min(64, chunk_rows)``, no kernel cache, composed maintenance."""
+    from ..core import MulticlassSVMConfig
+    from ..data import ArrayChunks, make_blobs_multiclass
+
+    cfg = MulticlassSVMConfig.create(n_classes, budget=budget, lambda_=1e-3, gamma=gamma,
+                                     batch_size=min(64, chunk_rows))
+    x, y = make_blobs_multiclass(np.random.default_rng(seed), train_rows, dim, n_classes,
+                                 sep=2.5)
+    return cfg, ArrayChunks(x, y, chunk_rows=chunk_rows)
+
+
+def serve_svm_live(*, gamma: float = 0.5, bank_dtype: str | None = None, n_classes: int = 4,
+                   budget: int = 32, dim: int = 16, train_rows: int = 4096,
+                   chunk_rows: int = 512, epochs: int = 2, publish_every: int = 2,
+                   rows: int = 4096, max_batch: int = 64, min_bucket: int = 8, seed: int = 0,
+                   verbose: bool = True, faults=None, retry=None, ckpt_dir: str | None = None,
+                   ckpt_every: int = 0, max_restarts: int = 2, report=None,
+                   device=None) -> dict:
+    """Train-while-serve: a background trainer hot-swaps the model mid-trace.
+
+    ``fit_multiclass_stream(bank=..., publish_every=...)`` runs on a
+    background thread (``prefetch=2``: chunk staging on its own worker),
+    publishing an immutable ``ServeModel`` snapshot into a ``ModelBank``
+    every ``publish_every`` chunks, while the foreground replays a ragged
+    request trace of ``rows`` rows through an ``AsyncBatchQueue`` over the
+    bank: every published version is picked up at the next microbatch, no
+    drain, no pause.  The problem is ``live_problem``'s.  The whole trace is
+    submitted at once, as the reference does.  Returns the serve stats plus
+    the version histogram (``versions: {version: microbatches}``) and
+    ``published_during_trace`` (snapshots the trainer published while the
+    trace ran), then serves the trace's first rows (at most
+    ``LIVE_CHECK_ROWS``) against the FINAL snapshot, whose queue labels are
+    asserted bitwise one direct call's.
+
+    Trainer and server share one Python process.  On the card the trainer
+    runs on a stream of its own and replays its chunk programs from CUDA
+    graphs (``cuda_graph=True``): it needs the interpreter lock a few times
+    a group of steps, not at every kernel, so a dispatcher kept busy by the
+    trace does not starve it, and its device work runs beside the server's
+    instead of queueing ahead of it; each snapshot is published once it is
+    computed (``bsgd._make_publish``).
+
+    Resilience (DESIGN.md §16): ``faults`` (a ``data.FaultSchedule``) wraps
+    the chunk source in ``FaultyChunks`` and arms the recovery stack:
+    retries (``retry`` defaults to ``RetryPolicy()``), the finite guard and
+    checkpoints (``ckpt_dir`` defaults to a temporary directory,
+    ``ckpt_every`` to ``publish_every``).  A SUPERVISOR wraps the trainer: a
+    crash leaves serving up on the last published version and restarts the
+    trainer (up to ``max_restarts``) from the newest verifiable checkpoint.
+    The final snapshot is asserted finite, and the result carries
+    ``restarts``/``retries``/``quarantined``/``rollbacks``."""
+    import tempfile
+    import threading
+
+    from ..core import (ModelBank, drive_trace, fit_multiclass_stream, ragged_trace_sizes,
+                        resolve_device)
+    from ..data import FaultyChunks, ResilienceReport, RetryPolicy
+
+    dev = resolve_device(device)
+    cfg, source = live_problem(n_classes=n_classes, budget=budget, dim=dim, gamma=gamma,
+                               train_rows=train_rows, chunk_rows=chunk_rows, seed=seed)
+    report = report if report is not None else ResilienceReport()
+    tmp_ckpt = None
+    if faults is not None:
+        source = FaultyChunks(source, faults)
+        retry = retry if retry is not None else RetryPolicy()
+        if ckpt_dir is None:
+            tmp_ckpt = tempfile.TemporaryDirectory(prefix="serve_live_ckpt_")
+            ckpt_dir = tmp_ckpt.name
+        if not ckpt_every:
+            ckpt_every = publish_every
+    bank = ModelBank()
+    fail: list[BaseException] = []
+
+    def trainer() -> None:
+        attempts = 0
+        while True:
+            try:
+                fit_multiclass_stream(cfg, source, epochs=epochs, seed=seed, prefetch=2,
+                                      bank=bank, publish_every=publish_every,
+                                      publish_dtype=bank_dtype, ckpt_dir=ckpt_dir,
+                                      ckpt_every=ckpt_every, retry=retry, report=report,
+                                      guard_finite=faults is not None, cuda_graph=True,
+                                      device=dev)
+                return
+            except Exception as e:  # noqa: BLE001 — supervised: counted, restarted
+                attempts += 1
+                if attempts > max_restarts:
+                    fail.append(e)   # re-raised on the main thread
+                    return
+                # serving stays up on the last published version; the next
+                # attempt resumes from the newest verifiable checkpoint
+                report.note_restart()
+                if verbose:
+                    print(f"[serve --live] trainer crashed ({e!r}); restart "
+                          f"{attempts}/{max_restarts} from checkpoint")
+
+    def trainer_on_its_stream() -> None:
+        with torch.cuda.stream(torch.cuda.Stream(dev) if dev.type == "cuda" else None):
+            trainer()
+
+    # the trace is drawn before training starts, so serving begins at the
+    # first snapshot
+    rng = np.random.default_rng(seed)
+    req_x = rng.standard_normal((rows, dim)).astype(np.float32)
+    sizes = ragged_trace_sizes(rows, max_batch, rng)
+    t = threading.Thread(target=trainer_on_its_stream, daemon=True, name="live-trainer")
+    t.start()
+    try:
+        bank.wait(1, timeout=600.0)           # the first snapshot before serving
+        first = bank.version
+        result = drive_trace(bank, req_x, sizes, max_batch=max_batch, min_bucket=min_bucket,
+                             queue="async")
+        result["published_during_trace"] = bank.version - first
+        t.join(timeout=1800.0)
+        if t.is_alive():
+            raise RuntimeError("background trainer did not finish within 1800 s")
+        if fail:
+            raise RuntimeError(f"background trainer failed past {max_restarts} "
+                               "restarts") from fail[0]
+    finally:
+        if tmp_ckpt is not None:
+            t.join(timeout=60.0)
+            tmp_ckpt.cleanup()
+    final_version, final_model = bank.current()
+    for name in ("sv_x", "alpha"):
+        if not bool(torch.isfinite(getattr(final_model, name).float()).all()):
+            raise AssertionError(f"published ServeModel.{name} contains non-finite values — "
+                                 "the publish guard failed")
+    # the final snapshot as a fixed model: drive_trace asserts queue == direct
+    n_check = int(np.searchsorted(np.cumsum(sizes), min(rows, LIVE_CHECK_ROWS), side="right"))
+    check = drive_trace(final_model, req_x, sizes[:max(n_check, 1)], max_batch=max_batch,
+                        min_bucket=min_bucket, queue="async")
+    result.update(dim=dim, n_classes=n_classes, device=str(dev), final_version=final_version,
+                  final_check_rows=check["rows"], restarts=report.restarts,
+                  retries=report.retries, quarantined=report.quarantined_chunks(),
+                  rollbacks=len(report.rollbacks))
+    if verbose:
+        print(f"[serve --live] {result['rows']} rows while training on {dev} "
+              f"({result['microbatches']} microbatches); versions served: "
+              f"{result.get('versions')} (final v{final_version}; "
+              f"{result['published_during_trace']} published during the trace)")
+        print(f"[serve --live] {result['rows_per_s']} rows/s; p50={result['p50_ms']} ms "
+              f"p99={result['p99_ms']} ms; pad waste {result['pad_waste_frac']}; final "
+              f"snapshot queue == direct predict (bitwise) on {check['rows']} rows")
+        if faults is not None:
+            print(f"[serve --live] resilience: {report!r}; final snapshot finite "
+                  "(guarded publish)")
+    return result
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
@@ -107,7 +276,16 @@ def main(argv=None) -> None:
                     help="svm_bsgd: also serve the K best class ids and softmax "
                          "probabilities of a sample (rank 1 re-asserted bitwise)")
     ap.add_argument("--live", action="store_true",
-                    help="svm_bsgd: train while serving (not ported yet)")
+                    help="svm_bsgd: train-while-serve: a background fit_multiclass_stream "
+                         "publishes snapshots into a ModelBank every K chunks while an "
+                         "AsyncBatchQueue serves the trace, hot-swapping mid-flight")
+    ap.add_argument("--publish-every", type=int, default=2, metavar="K",
+                    help="svm_bsgd --live: chunks between snapshots")
+    ap.add_argument("--faults", type=int, default=None, metavar="SEED",
+                    help="svm_bsgd --live: chaos drill: inject FaultSchedule.chaos(SEED) "
+                         "(transient IO errors, stalls, a NaN chunk, a fatal chunk, a trainer "
+                         "crash) and run the recovery stack: retries, quarantine, guarded "
+                         "publish, supervised restart from a checkpoint")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default the card; 'cpu' runs on the host)")
@@ -117,9 +295,15 @@ def main(argv=None) -> None:
             f"--arch {args.arch}: the language-model serving arms are not ported to "
             "repro_torch yet (ROADMAP.md Queue 1 item 12)")
     if args.live:
-        raise NotImplementedError(
-            "--live (train while serving) needs the streaming trainers, not ported to "
-            "repro_torch yet (ROADMAP.md Queue 1 items 8 and 10)")
+        faults = None
+        if args.faults is not None:
+            from ..data import FaultSchedule
+            faults = FaultSchedule.chaos(args.faults, nan_chunk=2, crash_chunk=3, fatal_chunk=5)
+        kw = dict(rows=1024, train_rows=2048, chunk_rows=256, epochs=1) if args.smoke else {}
+        serve_svm_live(gamma=args.gamma, bank_dtype=args.bank_dtype,
+                       publish_every=args.publish_every, seed=args.seed, faults=faults,
+                       device=args.device, **kw)
+        return
     if args.smoke:
         # the top-k drive defaults on only for the in-process 4-class model:
         # --model may be binary, where an unasked-for top_k would be an error

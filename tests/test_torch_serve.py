@@ -518,7 +518,7 @@ def test_serve_cli_needs_the_card_unless_told_otherwise():
         serve.main(["--arch", "svm_bsgd", "--smoke"])
 
 
-@pytest.mark.parametrize("argv,item", [(["--arch", "svm_bsgd", "--smoke", "--live"], "8"),
+@pytest.mark.parametrize("argv,item", [(["--arch", "smollm_360m", "--smoke", "--live"], "12"),
                                        (["--arch", "smollm_360m", "--smoke"], "12")])
 def test_serve_cli_unported_arms_raise(argv, item):
     from repro_torch.launch import serve
