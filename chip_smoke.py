@@ -114,7 +114,27 @@ non-zero exit code:
      over the 60,000 rows with its trace submitted at once, as the CLI does,
      and more than one version served, then its chaos drill (a ``CUT:`` line)
      with a trainer restart.  Every
-     launch counter is 0 before each streamed run and read after it.
+     launch counter is 0 before each streamed run and read after it;
+ 17. the second solver (``solver="bdca"``, dual coordinate ascent on the
+     kernel cache): (a) ``bdca_ascent`` bit for bit against its plain
+     version at the binary shape (C = 1, S = 501), the class shape (C = 10,
+     S = 508), ragged shapes (S = 37, classes below their count, frozen
+     slots, slots at the box, rounds 1 and 4) and two columns a thread (S =
+     1,100), with µs a call, device µs a launch, the plain version's µs and
+     the bound; (b) one bdca epoch of phase 4's ADULT stand-in (the cache,
+     ``bdca_C = box_from_lambda(n, 1e-5)``, 2 rounds; ``bdca_ascent`` once a
+     step, its gap to the binary fused bsgd run); (c) run (a)'s class axis
+     under bdca for one epoch (``bdca_C`` from the 60,000 rows; its gap to
+     run (a)); each held to an accuracy floor above chance
+     (``BDCA_ACC_FLOOR``: BDCA stays below the bsgd runs' 0.80 here, in the
+     reference too); profiled windows of both;
+     (d) the first 1,000 steps of (b) on the card and on the CPU in
+     lockstep, integer state and SV rows compared every step (where they
+     part, the cause must be a near-tie: a margin at 1, a coordinate
+     clipped at 0, tied event scores), then the cache invariants; (e) two
+     chunks of (c)'s rows through ``fit_multiclass_stream``, eager and from
+     CUDA graphs, bit-equal with equal launches (a ``CUT:`` line).  Every
+     launch counter is 0 before each bdca run and read after it.
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 It imports nothing from the JAX package.  Without a CUDA device, or without
@@ -148,10 +168,10 @@ MC_REPLAY_STEPS = 1_000
 # which the profiler's bookkeeping makes slow to read back
 MC_PROFILE_STEPS = {"a": 40, "b": 8, "c": 200, "d": 200}
 # steps of each class-axis run; None is one whole epoch (MC_TRAIN // MC_BATCH).
-# Run (b) is cut to keep the script near 500 s: with one multi_merge_choose
-# launch a round its whole epoch took 253 s of a ~580 s script on one H100
-# (PERF.md); phase 14 goes on from where it stops
-MC_STEPS = {"a": None, "b": 3_000, "c": None, "d": None}
+# Run (b) is cut to keep the script within ~800 s with phase 17: with one
+# multi_merge_choose launch a round its whole epoch took 253 s of a ~580 s
+# script on one H100 (PERF.md); phase 14 goes on from where it stops
+MC_STEPS = {"a": None, "b": 1_500, "c": None, "d": None}
 MC_RUNS = {"a": "merge_event engine", "b": "multi-merge", "c": "fused step, merge",
            "d": "fused step, multi-merge"}
 LOCKSTEP_STEPS = 1_000
@@ -188,10 +208,11 @@ class Phase:
         return False
 
 
-def time_call(fn, *, calls: int = 100, repeats: int = 7) -> float:
+def time_call(fn, *, calls: int = 100, repeats: int = 7, warmup: int = 10) -> float:
     """Median over ``repeats`` of the mean milliseconds per call of ``fn``,
-    from CUDA events around ``calls`` back-to-back calls (after a warm-up)."""
-    for _ in range(10):
+    from CUDA events around ``calls`` back-to-back calls (after ``warmup``
+    calls)."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     means = []
@@ -2567,6 +2588,370 @@ def phase_stream(core, mc, ops, data, mc_data, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the second solver (BDCA dual coordinate ascent)
+# ---------------------------------------------------------------------------
+
+BDCA_ROUNDS = 2
+BDCA_PROFILE_STEPS = {"b": 300, "c": 40}
+# bdca's accuracy floors, (b) binary and (c) over 10 classes: well above
+# chance (0.5, 0.1).  At these configurations (lambda 1e-5, the box clamped
+# by box_from_lambda) every row violates the margin and BDCA stays below the
+# bsgd runs' 0.80 floor in the reference too: on 1,000 rows of the ADULT
+# stand-in the port and the reference reach the same accuracy, well below
+# the reference's bsgd (tests/test_torch_bdca.py
+# test_adult_standin_accuracy_equals_reference).  Each run prints its gap to
+# the bsgd run.
+BDCA_ACC_FLOOR = {"b": 0.60, "c": 0.50}
+BDCA_LOCKSTEP_STEPS = 1_000
+BDCA_ROW_GAP = 0.1        # (d): SV rows further apart than this hold other points
+BDCA_STREAM_ROWS = 2 * STREAM_CHUNK_ROWS     # (e): two chunks of run (c)'s rows
+
+
+def _bdca_state(gen, c, s, counts, dev, C, case="random"):
+    """A working set per class: a symmetric unit-diagonal RBF Gram matrix of
+    random points (exactly symmetric: I2), signed coefficients inside the box
+    below each count and garbage past it (the kernel must zero it).
+    ``case="ragged"`` also freezes every fifth slot (alpha = 0) and puts
+    every seventh at the box (+-C)."""
+    x = torch.randn(c, s, 8, generator=gen)
+    d2 = ((x[:, :, None, :] - x[:, None, :, :]) ** 2).sum(-1)
+    k = torch.exp(-0.3 * d2)
+    k[:, torch.arange(s), torch.arange(s)] = 1.0
+    a = torch.rand(c, s, generator=gen) * C * torch.where(torch.rand(c, s, generator=gen) < 0.5,
+                                                         -1.0, 1.0)
+    if case == "ragged":
+        a[:, ::5] = 0.0
+        a[:, 3::7] = C * torch.sign(a[:, 3::7] + 0.5)
+    n = torch.tensor(counts, dtype=torch.int32)
+    return a.to(dev), k.to(dev), n.to(dev)
+
+
+def _bdca_work(kmat_shape, counts, rounds):
+    """``(bytes, operations)`` of one call: the active block of each class's
+    cache read once, alpha read and written, the counts; f = b k (2 n^2)
+    and each sweep's n coordinate updates (~2 n + 8 each)."""
+    c, s, _ = kmat_shape
+    n = np.asarray(counts, dtype=np.float64)
+    n_bytes = float((n * n).sum() * 4 + c * s * 8 + c * 4)
+    n_ops = float((2 * n * n + rounds * n * (2 * n + 8)).sum())
+    return n_bytes, n_ops
+
+
+def phase_bdca_kernel(ops, ref, card):
+    """(a) bdca_ascent against its plain version, bit for bit, at the binary
+    shape (C = 1, S = 501), the class shape (C = 10, S = 508) and a ragged
+    one (C = 3, S = 37: classes below their count, frozen slots, slots at
+    the box, rounds 1 and 4) and at two columns a thread (C = 2, S = 1,100);
+    returns the binary shape's record."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 17)
+    C = 3.8389
+    cases = [("binary", 1, 501, [501], BDCA_ROUNDS, "random"),
+             ("class", 10, 508, [500 + q % 9 for q in range(10)], BDCA_ROUNDS, "random"),
+             ("ragged r1", 3, 37, [37, 20, 0], 1, "ragged"),
+             ("ragged r4", 3, 37, [36, 1, 2], 4, "ragged"),
+             ("two columns a thread", 2, 1100, [1100, 640], 1, "random")]
+    record = None
+    for label, c, s, counts, rounds, case in cases:
+        a0, k, n = _bdca_state(gen, c, s, counts, dev, C, case)
+        if c == 1:
+            a0, k, n = a0[0], k[0], n.reshape(())
+        got = ops.bdca_ascent(a0.clone(), k, n, C, rounds, impl="cuda")
+        want = ref.bdca_ascent(a0.clone(), k, n, C, rounds)
+        err = (got - want).abs().max().item()
+        equal = torch.equal(got, want)
+        box = bool((got.abs() <= float(np.float32(C))).all())
+        stale = bool((got.reshape(c, s)[torch.arange(s, device=dev)[None, :]
+                                        >= n.reshape(c, 1)] == 0).all())
+        a = a0.clone()
+
+        def call():
+            a.copy_(a0)
+            ops.bdca_ascent(a, k, n, C, rounds, impl="cuda")
+
+        k_ms = time_call(call)
+        d_ms = device_ms(call, "bdca_ascent")
+        p_ms = time_call(lambda: ref.bdca_ascent(a0.clone(), k, n, C, rounds), calls=1,
+                         repeats=3, warmup=1)
+        n_bytes, n_ops = _bdca_work((c, s, s), counts, rounds)
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        sweep_bytes = (rounds + 1) * s * s * 4 * c
+        sweep_us = sweep_bytes / HBM_BYTES_PER_S * 1e6
+        chain = max(counts) * rounds
+        per = "not measured" if d_ms is None else f"{d_ms * 1e6 / chain:.1f} ns"
+        print(f"bdca_ascent {label} C={c} S={s} counts {counts[:4]}{'...' if c > 4 else ''} "
+              f"rounds {rounds} ({card}): max_abs_err {err:.3e} (tol 0, bit for bit) equal "
+              f"{equal}; box holds {box}; stale slots zero {stale}; kernel {k_ms * 1e3:.2f} us "
+              f"a call (with a {c * s * 4}-byte copy of alpha), device {us(d_ms)} a launch ({per} "
+              f"a coordinate of the chain), plain {p_ms * 1e3:.2f} us; bound {b_ms * 1e3:.4f} us ({b_by}: the active blocks read "
+              f"once); (rounds + 1) S^2 x 4 bytes a class, all classes {sweep_bytes} "
+              f"({sweep_us:.4f} us at 3.35 TB/s); serial chain {chain} coordinates "
+              f"({max(counts)} x {rounds} rounds)")
+        check(equal and err == 0.0, f"bdca_ascent {label}: differs from its plain version")
+        check(box and stale, f"bdca_ascent {label}: box or stale slots")
+        if label == "binary":
+            record = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=None, device_ms=d_ms)
+    return record
+
+
+def _bdca_binary_cfg(core, n_train: int):
+    """Phase 4's ADULT configuration (lookup-wd, batch 1) with the cache under
+    the dual solver, its box from ``box_from_lambda`` at the training size."""
+    return core.BSGDConfig(budget=BUDGET, lambda_=1e-5, gamma=2.0 ** -7, batch_size=1,
+                           method="lookup-wd", use_kernel_cache=True, solver="bdca",
+                           bdca_C=core.box_from_lambda(n_train, 1e-5), bdca_rounds=BDCA_ROUNDS)
+
+
+def phase_bdca_binary(core, ops, data, fused_acc: float, card):
+    """(b) one bdca epoch of the ADULT stand-in, the launch counters set to 0
+    just before it and read just after."""
+    (xtr, ytr), (xte, yte) = data
+    cfg = _bdca_binary_cfg(core, xtr.shape[0])
+    st, secs, launches = _launched(ops, lambda: core.fit(cfg, xtr, ytr, epochs=1, seed=SEED))
+    acc = float(core.accuracy(st, xte, yte, cfg.gamma))
+    steps = int(st.step) - 1
+    run = dict(count=int(st.count), n_inserts=int(st.n_inserts), n_merges=int(st.n_merges),
+               accuracy=acc, seconds=secs, us_per_step=secs / steps * 1e6, steps=steps,
+               launches=launches)
+    gap = acc - fused_acc
+    print(f"bdca (b) {card}: fit solver=bdca, bdca_C {cfg.bdca_C:.4f} (box_from_lambda("
+          f"{xtr.shape[0]}, 1e-5)), bdca_rounds {cfg.bdca_rounds}: {json.dumps(run)}")
+    print(f"bdca (b): accuracy {acc:.4f} against the binary fused bsgd run's {fused_acc:.4f} "
+          f"(the same configuration under bsgd): gap {gap:+.4f} (reported, not gated); at or "
+          f"above the bsgd runs' 0.80 floor {acc >= 0.80}; floor {BDCA_ACC_FLOOR['b']}")
+    check(st.sv_x.is_cuda and st.kmat.is_cuda, "bdca (b): the state lives on the card")
+    check(run["count"] <= BUDGET and run["n_merges"] > 0, "bdca (b): count or merges")
+    check(launches["bdca_ascent"] == steps, f"bdca (b): bdca_ascent launched "
+          f"{launches['bdca_ascent']} times in {steps} steps")
+    check(launches["merge_pick"] == steps, f"bdca (b): merge_pick launched "
+          f"{launches['merge_pick']} times in {steps} steps")
+    check(acc >= BDCA_ACC_FLOOR["b"], f"bdca (b): accuracy {acc} below {BDCA_ACC_FLOOR['b']}")
+    return run, st, cfg
+
+
+def phase_bdca_class(mc, core, ops, kernel_cache, mc_data, run_a_acc: float, card):
+    """(c) run (a)'s class-axis configuration under the dual solver, one
+    epoch, the launch counters set to 0 just before it and read just after."""
+    (xtr, ytr), (xte, yte) = mc_data
+    dev = torch.device("cuda")
+    cfg = _bdca_mc_config(mc, core)
+    steps = MC_TRAIN // MC_BATCH
+    table = cfg.table().to(dev)
+    x, y = torch.as_tensor(xtr, device=dev), torch.as_tensor(ytr, device=dev)
+    st, secs, launches = _launched(ops, lambda: mc.train_epoch_multiclass(
+        cfg, table, mc.init_multiclass_state(cfg, MC_DIM, device=dev), x, y, _mc_order(steps),
+        device=dev))
+    acc = float(mc.accuracy_multiclass(st, xte, yte, MC_GAMMA))
+    res = dict(steps=steps, seconds=secs, us_per_step=secs / steps * 1e6, accuracy=acc,
+               count=st.count.tolist(), n_merges=st.n_merges.tolist(),
+               n_inserts=st.n_inserts.tolist(), launches=launches)
+    print(f"bdca (c) {card}: class axis, solver=bdca, bdca_C {cfg.binary.bdca_C:.4f} "
+          f"(box_from_lambda({MC_TRAIN}, 1e-5)), maintenance_engine=pallas: {json.dumps(res)}")
+    print(f"bdca (c): accuracy {acc:.4f} against run (a)'s {run_a_acc:.4f}: gap "
+          f"{acc - run_a_acc:+.4f} (reported, not gated); at or above the class-axis runs' "
+          f"0.80 floor {acc >= 0.80}; floor {BDCA_ACC_FLOOR['c']}")
+    check(max(res["count"]) <= MC_BUDGET and min(res["n_merges"]) > 0, "bdca (c): counts")
+    for name in ("bdca_ascent", "merge_event_rounds"):
+        check(launches[name] == steps, f"bdca (c): {name} launched {launches[name]} times in "
+              f"{steps} steps")
+    check(acc >= BDCA_ACC_FLOOR["c"], f"bdca (c): accuracy {acc} below {BDCA_ACC_FLOOR['c']}")
+    worst = kernel_cache.invariant_errors(st.kmat, st.sv_x, st.count, MC_GAMMA)
+    print(f"bdca (c) end of epoch: worst I1 error per class {[float(f'{e:.3e}') for e in worst]}")
+    return res, st
+
+
+def phase_bdca_class_profile(mc, core, st, mc_data):
+    """A profiled window of (c)'s steps from its trained state."""
+    (xtr, ytr), _ = mc_data
+    cfg = _bdca_mc_config(mc, core)
+    n = BDCA_PROFILE_STEPS["c"] * MC_BATCH
+    xs, ys = torch.as_tensor(xtr[:n]).cuda(), torch.as_tensor(ytr[:n]).long().cuda()
+    table = cfg.table().to("cuda")
+    box = [st]
+
+    def step(i):
+        sl = slice(i * MC_BATCH, (i + 1) * MC_BATCH)
+        box[0] = mc.train_step_multiclass(cfg, table, box[0], xs[sl], ys[sl])
+
+    _profile(step, BDCA_PROFILE_STEPS["c"], "bdca (c), class axis")
+
+
+def _bdca_mc_config(mc, core):
+    base = _mc_config(mc, "a").binary
+    return mc.MulticlassSVMConfig(n_classes=MC_CLASSES, binary=dataclasses.replace(
+        base, solver="bdca", bdca_C=core.box_from_lambda(MC_TRAIN, 1e-5),
+        bdca_rounds=BDCA_ROUNDS))
+
+
+def _bdca_near_tie(ops, cfg, tabs, prev, xs, ys):
+    """Why the card and CPU bdca steps part, from the states before the step:
+    a minibatch row whose margin lies on either side of 1 on the two devices;
+    an event round whose decisions differ where the two smallest |alpha| or
+    the two smallest WD scores tie to 1e-5, or where a coordinate sits at 0
+    (frozen) on one device and within 1e-4 of it on the other (clipped at
+    0 on one only).  Returns ``(explained, text)``."""
+    from repro_torch.core import bdca
+    from repro_torch.kernels import ref
+
+    margins, rounds, mids = {}, {}, {}
+    for key, st in prev.items():
+        dev = st.alpha.device
+        k_b = ops.rbf_matrix(xs[key], st.sv_x, cfg.gamma)
+        act = torch.arange(st.alpha.shape[0], device=dev) < st.count
+        margins[key] = (ys[key] * (k_b @ torch.where(act, st.alpha, 0.0))).cpu()
+        mid = bdca.insert_from_rows(cfg, st, xs[key], ys[key], k_b,
+                                    ops.rbf_matrix(xs[key], xs[key], cfg.gamma))
+        mids[key] = mid.alpha.cpu()
+        sv, al, km = (t[None].clone() for t in (mid.sv_x, mid.alpha, mid.kmat))
+        count = mid.count.reshape(1).clone()
+        rounds[key] = []
+        for _ in range(cfg.batch_size):
+            over = count > cfg.budget
+            snap = (al[0].cpu(), km[0].cpu(), int(count[0]))
+            dec = torch.full((1, 3), -1, dtype=torch.int32, device=dev)
+            ops.merge_event(sv, al, km, count, over, tabs[key], decisions=dec)
+            rounds[key].append((dec[0].cpu(), snap))
+            count = count - over.to(count.dtype)
+    m_c, m_p = margins["cuda"], margins["cpu"]
+    split = torch.nonzero((m_c < 1) != (m_p < 1)).flatten()
+    if split.numel():
+        r = int(split[0])
+        gap = abs(float(m_c[r]) - float(m_p[r]))
+        return gap < 1e-3, (f"margin near-tie: batch row {r} margin card {float(m_c[r])!r} "
+                            f"cpu {float(m_p[r])!r}")
+    for k, ((d_c, snap), (d_p, snap_p)) in enumerate(zip(rounds["cuda"], rounds["cpu"])):
+        if torch.equal(d_c, d_p):
+            continue
+        al, km, cnt = snap
+        al_p = snap_p[0]
+        live = torch.arange(al.shape[0]) < cnt
+        frozen = live & ((al == 0) != (al_p == 0))
+        if frozen.any():
+            q = int(torch.nonzero(frozen)[0])
+            near = max(abs(float(al[q])), abs(float(al_p[q])))
+            return near < 1e-4, (f"clip near-tie: round {k}, slot {q} frozen on one device only "
+                                 f"(card {float(al[q])!r}, cpu {float(al_p[q])!r}); decisions "
+                                 f"card {d_c.tolist()} cpu {d_p.tolist()}")
+        a_abs = torch.where(live, al.abs(), torch.inf)
+        a2 = torch.sort(a_abs).values[:2]
+        i_min = int(torch.argmin(a_abs))
+        m, kap = ref.merge_coords(al[i_min], al, km[i_min])
+        valid = live & (al * al[i_min] > 0) & (torch.arange(al.shape[0]) != i_min)
+        wd = torch.where(valid, (al[i_min] + al) ** 2 * ref.bilinear_lookup(tabs["cpu"].wd_table, m, kap),
+                         torch.inf)
+        w2 = torch.sort(wd).values[:2]
+        tie = bool(a2[1] - a2[0] <= 1e-5 * a2[0]) or bool(w2[1] - w2[0] <= 1e-5 * w2[0])
+        return tie, (f"event near-tie: round {k} decisions card {d_c.tolist()} cpu "
+                     f"{d_p.tolist()}; two smallest |alpha| {a2.tolist()}, WD {w2.tolist()}")
+    at_box = ((mids["cuda"].abs() == np.float32(cfg.bdca_C))
+              != (mids["cpu"].abs() == np.float32(cfg.bdca_C))).nonzero().flatten().tolist()
+    return False, (f"no margin or event decision differs (slots at the box on one device only "
+                   f"after the ascent: {at_box[:8]})")
+
+
+def phase_bdca_lockstep(core, ops, data, card):
+    """(d) the first BDCA_LOCKSTEP_STEPS steps of (b) on the card and on the
+    CPU (plain versions) in lockstep: count, n_inserts and n_merges compared
+    every step, and the SV rows: a merge with another partner moves a row
+    by the distance between two points (~1 a coordinate on this data), the
+    float drift of the merge coefficients by ~1e-3 after hundreds of merges
+    (1.27e-3 at step 834 on an H100), so rows part beyond ``BDCA_ROW_GAP``.
+    Where they first part, the cause must be a near-tie
+    (``_bdca_near_tie``); then the cache invariants of both."""
+    from repro_torch.core import kernel_cache
+
+    (xtr, ytr), _ = data
+    cfg = _bdca_binary_cfg(core, xtr.shape[0])
+    order = torch.randperm(xtr.shape[0], generator=torch.Generator().manual_seed(SEED))
+    order = order[:BDCA_LOCKSTEP_STEPS]
+    devs = {"cuda": torch.device("cuda"), "cpu": torch.device("cpu")}
+    tabs = {k: cfg.table().to(dev) for k, dev in devs.items()}
+    st = {k: core.init_state(cfg, DIM, device=dev) for k, dev in devs.items()}
+    xs = {k: torch.as_tensor(xtr).index_select(0, order).to(dev) for k, dev in devs.items()}
+    ys = {k: torch.as_tensor(ytr).index_select(0, order).to(dev) for k, dev in devs.items()}
+    ints = lambda s: torch.stack([s.count, s.n_inserts, s.n_merges]).cpu()
+    first, worst_row = None, 0.0
+    t0 = time.perf_counter()
+    for i in range(BDCA_LOCKSTEP_STEPS):
+        prev = dict(st)
+        for k in devs:
+            st[k] = core.train_step(cfg, tabs[k], st[k], xs[k][i:i + 1], ys[k][i:i + 1])
+        if first is not None:
+            continue
+        rows = float((st["cuda"].sv_x.cpu() - st["cpu"].sv_x).abs().max())
+        if torch.equal(ints(st["cuda"]), ints(st["cpu"])) and rows <= BDCA_ROW_GAP:
+            worst_row = max(worst_row, rows)
+            continue
+        first = i
+        explained, why = _bdca_near_tie(ops, cfg, tabs, prev, {d: xs[d][i:i + 1] for d in devs},
+                                        {d: ys[d][i:i + 1] for d in devs})
+        print(f"bdca (d) lockstep: first step that parts: {i} (SV rows max diff {rows:.3e}); "
+              f"{why}")
+        check(explained, f"bdca (d): the card and CPU part at step {i} without a near-tie: "
+              f"{why}")
+    secs = time.perf_counter() - t0
+    if first is None:
+        print("bdca (d) lockstep: first step that parts: None")
+    print(f"bdca (d) {card}: {BDCA_LOCKSTEP_STEPS} steps on both in {secs:.3f} s; SV rows max "
+          f"diff before any parting {worst_row:.3e}; ints card {ints(st['cuda']).tolist()} cpu "
+          f"{ints(st['cpu']).tolist()}")
+    for k, s in st.items():
+        kernel_cache.check_invariants(s.kmat, s.sv_x, s.count, cfg.gamma, tol=5e-5,
+                                      context=f"bdca lockstep {k}")
+    print("bdca (d): cache invariants I1 (tol 5e-5), I2, I3 hold on both")
+
+
+def phase_bdca_stream(mc, core, ops, mc_data, card):
+    """(e) part of (c)'s rows streamed through ``fit_multiclass_stream``,
+    eager and replayed from CUDA graphs, bit-equal with equal launches;
+    returns the launches of both runs."""
+    from repro_torch import data as sd
+
+    (xtr, ytr), _ = mc_data
+    cfg = _bdca_mc_config(mc, core)
+    src = sd.ArrayChunks(xtr[:BDCA_STREAM_ROWS], ytr[:BDCA_STREAM_ROWS], STREAM_CHUNK_ROWS)
+    steps = BDCA_STREAM_ROWS // MC_BATCH
+    print(f"CUT: bdca (e) streams {BDCA_STREAM_ROWS} of run (c)'s {MC_TRAIN} rows "
+          f"({src.n_chunks} chunks)")
+    eager, esecs, el = _launched(ops, lambda: mc.fit_multiclass_stream(
+        cfg, src, epochs=1, seed=SEED, prefetch=2))
+    graphed, gsecs, gl = _launched(ops, lambda: mc.fit_multiclass_stream(
+        cfg, src, epochs=1, seed=SEED, prefetch=2, cuda_graph=True))
+    eq = _states_equal(eager, graphed)
+    print(f"bdca (e) {card}: {steps} steps streamed: eager {esecs / steps * 1e6:.1f} us/step, "
+          f"CUDA graphs {gsecs / steps * 1e6:.1f} us/step (captures included); bit-equal {eq}; "
+          f"launches equal {el == gl} ({json.dumps(gl)})")
+    check(eq, "bdca (e): the CUDA-graph stream differs from the eager one")
+    check(el == gl, f"bdca (e): launches eager {el}, CUDA graphs {gl}")
+    check(el["bdca_ascent"] == steps, f"bdca (e): bdca_ascent launched {el['bdca_ascent']} "
+          f"times in {steps} steps")
+    total = {}
+    _add(total, el)
+    _add(total, gl)
+    return total
+
+
+def phase_bdca(core, mc, ops, ref, data, mc_data, fused_acc, run_a_acc, card):
+    """Phase 17: the second solver.  Returns the kernel record and the
+    launches of its main paths (b), (c) and (e)."""
+    from repro_torch.core import kernel_cache
+
+    record = phase_bdca_kernel(ops, ref, card)
+    counts = {}
+    run_b = phase_bdca_binary(core, ops, data, fused_acc, card)
+    _add(counts, run_b[0]["launches"])
+    phase_profile(core, run_b, "bdca (b), binary", BDCA_PROFILE_STEPS["b"])
+    run_c, st_c = phase_bdca_class(mc, core, ops, kernel_cache, mc_data, run_a_acc, card)
+    _add(counts, run_c["launches"])
+    phase_bdca_class_profile(mc, core, st_c, mc_data)
+    phase_bdca_lockstep(core, ops, data, card)
+    _add(counts, phase_bdca_stream(mc, core, ops, mc_data, card))
+    print(f"bdca runs' launches: {json.dumps(counts)}")
+    return record, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -2636,6 +3021,10 @@ def main() -> int:
         phase_choose_lockstep(mc, budget_mod, mc_data, mc_runs["b"])
     with Phase("16 streaming"):
         stream_counts = phase_stream(core, mc, ops, data, mc_data, card)
+    with Phase("17 second solver"):
+        records["bdca_ascent"], bdca_counts = phase_bdca(
+            core, mc, ops, ref, data, mc_data, binary_fused[0]["accuracy"],
+            mc_runs["a"][0]["accuracy"], card)
 
     # launches on the main paths: the binary runs of phase 4 (rbf_matrix,
     # merge_pick, gss_pick, and merge_scores and gss, now 0) and the
@@ -2647,7 +3036,10 @@ def main() -> int:
     counts["train_step"] = (binary_fused[0]["launches"]["train_step"]
                             + sum(r[0]["launches"]["train_step"] for r in fused_runs.values()))
     counts["class_scores"] = serve_counts["class_scores"]
+    counts["bdca_ascent"] = 0
     for name, n in stream_counts.items():     # phase 16's streamed paths
+        counts[name] += n
+    for name, n in bdca_counts.items():       # phase 17's bdca paths
         counts[name] += n
     meta = {
         "rbf_matrix": ("src/repro_torch/csrc/rbf_kernel.cu", "src/repro/kernels/rbf_kernel.py:57"),
@@ -2668,6 +3060,7 @@ def main() -> int:
         "train_step": ("src/repro_torch/csrc/train_step.cu",
                        "src/repro/kernels/train_step.py:370"),
         "class_scores": ("src/repro_torch/csrc/class_scores.cu", "src/repro/kernels/ops.py:103"),
+        "bdca_ascent": ("src/repro_torch/csrc/bdca_ascent.cu", "src/repro/core/bdca.py:124"),
     }
     kernels = [dict(name=name, route="cuda", source=src_path, replaces=replaces,
                     launches=counts[name], **records[name])

@@ -57,9 +57,10 @@ class BSGDConfig:
     """Budgeted-SGD hyperparameters (one binary problem).
 
     The fields and their validation are ``repro.core.bsgd.BSGDConfig``'s, so
-    one config means the same in both packages.  A valid setting that this
-    port does not carry yet raises ``NotImplementedError`` naming the
-    ROADMAP.md item: ``solver="bdca"``.  ``maintenance_engine="pallas"``
+    one config means the same in both packages.  ``solver="bdca"`` trains
+    with the dual coordinate-ascent solver (``core.bdca``: one
+    ``bdca_ascent`` launch a step runs its ``bdca_rounds`` sweeps in the box
+    ``bdca_C``), through the same maintenance.  ``maintenance_engine="pallas"``
     runs the fused ``merge_event`` kernel; ``step_engine="pallas"`` runs the
     whole step (margin rows, insert, event rounds) as one ``train_step``
     kernel launch per step.  Maintenance always runs ``batch_size`` masked
@@ -140,12 +141,6 @@ class BSGDConfig:
                 raise ValueError("solver='bdca' needs bdca_C > 0")
         if self.batch_size < 1:
             raise ValueError(f"batch_size={self.batch_size} < 1")
-        self._check_ported()
-
-    def _check_ported(self):
-        if self.solver == "bdca":
-            raise NotImplementedError(
-                "solver='bdca' is not ported to repro_torch yet (ROADMAP.md Queue 1 item 9)")
 
     @property
     def slots(self) -> int:
@@ -282,8 +277,12 @@ def drain_budget(cfg: BSGDConfig, table, state: SVMState, *, impl: str = "auto")
 
 def train_step_from_rows(cfg: BSGDConfig, table, state: SVMState, xb, yb, k_b, k_bb=None, *,
                          impl: str = "auto") -> SVMState:
-    """Pegasos minibatch step + maintenance from precomputed kernel rows
-    (``k_bb`` only with the kernel cache)."""
+    """One minibatch step + maintenance from precomputed kernel rows (``k_bb``
+    only with the kernel cache): the Pegasos insert, or with
+    ``solver="bdca"`` the dual insert and ascent of ``core.bdca``."""
+    if cfg.solver == "bdca":
+        from . import bdca
+        return bdca.train_step_from_rows(cfg, table, state, xb, yb, k_b, k_bb, impl=impl)
     state = insert_from_rows(cfg, state, xb, yb, k_b, k_bb)
     return drain_budget(cfg, table, state, impl=impl)
 
@@ -305,8 +304,9 @@ def _fused_step_(cfg: BSGDConfig, table, state: SVMState, xb, yb, *,
 
 def train_step(cfg: BSGDConfig, table, state: SVMState, xb, yb, *,
                impl: str = "auto") -> SVMState:
-    """One minibatch step + budget maintenance on the state's device; the
-    caller's state is left as it was.
+    """One minibatch step + budget maintenance on the state's device
+    (``cfg.solver`` picks the insert half); the caller's state is left as it
+    was.
 
     xb: (batch, dim), yb: (batch,) in {-1, +1}, on the state's device."""
     if cfg.step_engine == "pallas":

@@ -6,9 +6,10 @@ a leading ``(C,)`` axis, and train in lockstep:
 
   * the margin rows of all classes come from ONE ``rbf_matrix`` call against
     the flattened ``(C * slots, dim)`` SV bank (``class_kernel_rows``);
-  * the Pegasos update and budget maintenance are batched tensor ops over
-    the class axis (the reference's ``jax.vmap``), with one lookup table
-    shared by every class;
+  * the solver's update (Pegasos, or BDCA's dual ascent: one
+    ``bdca_ascent`` launch for all classes) and budget maintenance are
+    batched over the class axis (the reference's ``jax.vmap``), with one
+    lookup table shared by every class;
   * with ``maintenance_engine="pallas"`` maintenance is the fused event
     engine, one ``merge_event`` launch per round for all classes
     (``budget.run_maintenance_classes``);
@@ -29,6 +30,7 @@ import dataclasses
 
 import torch
 
+from . import bdca
 from . import budget as budget_mod
 from .bsgd import (BSGDConfig, SVMState, _ChunkGraphs, _device_stage, _fit_stream, _make_guard, _make_publish,
                    _owned, _stream_epoch, _sync, _tensor, _to, fit, init_state, insert_from_rows,
@@ -139,7 +141,9 @@ def train_step_multiclass(cfg: MulticlassSVMConfig, table, state: SVMState, xb, 
     xb: (batch, dim); yb: (batch,) integer class ids in [0, C), on the
     state's device.  With ``step_engine="pallas"`` the whole step is one
     ``train_step`` launch.  Otherwise one kernel call gives every class's
-    margin rows; the shrink and insert run batched over the class axis, then
+    margin rows; the solver's insert half runs batched over the class axis
+    (the Pegasos shrink and insert, or with ``solver="bdca"`` the dual
+    insert and one ``bdca_ascent`` launch for every class), then
     maintenance drains every class: the fused event engine with
     ``maintenance_engine="pallas"``, else the configured strategy batched
     over the classes."""
@@ -149,7 +153,10 @@ def train_step_multiclass(cfg: MulticlassSVMConfig, table, state: SVMState, xb, 
     k_b = class_kernel_rows(state.sv_x, xb, b.gamma, impl=impl)       # (C, batch, slots)
     k_bb = kops.rbf_matrix(xb, xb, b.gamma, impl=impl) if b.use_kernel_cache else None
     y_ovr = ovr_targets(yb, cfg.n_classes, dtype=getattr(torch, b.dtype))
-    mid = insert_from_rows(b, state, xb, y_ovr, k_b, k_bb)
+    if b.solver == "bdca":
+        mid = bdca.insert_from_rows(b, state, xb, y_ovr, k_b, k_bb, impl=impl)
+    else:
+        mid = insert_from_rows(b, state, xb, y_ovr, k_b, k_bb)
     if b.maintenance_engine == "pallas":
         # mid's sv_x, alpha and kmat are this step's own fresh tensors: the
         # in-place event rounds take them over, with no copy

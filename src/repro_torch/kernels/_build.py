@@ -41,6 +41,7 @@ SOURCES = {
     "merge_event": ("-fmad=false",),
     "train_step": ("-fmad=false",),
     "class_scores": ("-fmad=false",),
+    "bdca_ascent": ("-fmad=false",),
 }
 
 # shared memory one thread block may use on Hopper (227 KB)

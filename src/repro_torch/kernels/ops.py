@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from . import bdca as bdca_kernel
 from . import class_scores as class_scores_kernel
 from . import gss as gss_kernel
 from . import merge_event as merge_event_kernel
@@ -30,7 +31,8 @@ _KERNELS = {"rbf_matrix": (rbf_kernel, "launches"), "merge_scores": (merge_looku
             "merge_event": (merge_event_kernel, "launches"),
             "merge_event_rounds": (merge_event_kernel, "rounds_launches"),
             "train_step": (train_step_kernel, "launches"),
-            "class_scores": (class_scores_kernel, "launches")}
+            "class_scores": (class_scores_kernel, "launches"),
+            "bdca_ascent": (bdca_kernel, "launches")}
 
 
 def _use_kernel(impl: str, t: torch.Tensor) -> bool:
@@ -279,3 +281,19 @@ def train_step(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb, k_bb
     if _use_kernel(impl, sv_x):
         return train_step_kernel.train_step_cuda(*args, **kw)
     return ref.train_step_fused(*args, **kw)
+
+
+def bdca_ascent(alpha, kmat, count, C: float, rounds: int, *, impl: str = "auto"):
+    """BDCA's ``rounds`` Gauss-Seidel sweeps of exact 1-D dual maximization
+    over the working set, IN PLACE on ``alpha`` (returned).
+
+    alpha: (s,) signed coefficients with kmat (s, s) and a 0-d int32 count,
+    or stacked (C, s), (C, s, s) and (C,); ``C`` is the dual box.  Stale
+    slots (``>= count``) come back zero; frozen ones (``alpha = 0``) stay.
+    The kernel and the plain version alike update alpha in place; clone it
+    first to keep it.  On the card one ``bdca_ascent`` launch (one block a
+    class), reading ``count`` there; the plain version is
+    ``ref.bdca_ascent``."""
+    if _use_kernel(impl, alpha):
+        return bdca_kernel.bdca_ascent_cuda(alpha, kmat, count, C, rounds)
+    return ref.bdca_ascent(alpha, kmat, count, C, rounds)

@@ -614,3 +614,47 @@ def train_step_fused(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb
     n_inserts.add_(n_new)
     n_merges.copy_(n_mrg)
     return sv_x, alpha, kmat, count, step + 1, n_inserts, n_merges
+
+
+def bdca_ascent(alpha, kmat, count, C: float, rounds: int):
+    """``rounds`` Gauss-Seidel sweeps of exact 1-D dual maximization, IN PLACE
+    (the plain version of the ``bdca_ascent`` kernel).
+
+    alpha: (s,) signed coefficients ``b_i = y_i a_i`` with kmat (s, s) and a
+    0-d count, or stacked (C, s), (C, s, s) and (C,); kmat is the kernel
+    cache.  Per class, ``b`` is alpha with stale (``>= count``) slots zeroed
+    and ``f = b @ k``, summed in ascending slot order, a product rounded and
+    then added (by the cache's exact symmetry, I2, this is the reference's
+    ``k @ b``).  Each sweep visits every coordinate ``i < count`` in order:
+    ``a = clip(|b_i| + 1 - y_i f_i, 0, C)`` with ``y_i = sign(b_i)``; a live
+    coordinate (``b_i != 0``) takes ``b_i <- y_i a`` and ``f <- f + (b_new -
+    b_i) k[i]``, the product rounded before the add; a frozen one (``b_i =
+    0``) changes nothing.  Coordinates past ``count`` are not live.  alpha
+    receives ``b`` (stale slots zero) and is returned."""
+    one = alpha.dim() == 1
+    b = alpha[None] if one else alpha
+    k = (kmat[None] if one else kmat).float()
+    n = count.reshape(-1)
+    c, s = b.shape
+    idx = iota(s, b.device)
+    b = torch.where(idx < n[:, None], b, 0.0)
+    top = min(int(n.max()), s) if c else 0
+    rows = k.unbind(1)                  # rows[i]: (C, s), row i of every class
+    f = torch.zeros_like(b)
+    for j in range(top):
+        f = torch.where(j < n[:, None], f + b[:, j:j + 1] * rows[j], f)
+    cap = float(np.float32(C))
+    # b and f are updated in place below, so their column views stay current;
+    # b is zero past each class's count, so a coordinate there is not live
+    b_col, f_col = b.unbind(1), f.unbind(1)
+    for _ in range(rounds):
+        for i in range(top):
+            bi, fi = b_col[i], f_col[i]
+            y = torch.sign(bi)
+            live = bi != 0
+            a_new = torch.clamp((torch.abs(bi) + 1.0) - y * fi, 0.0, cap)
+            b_new = torch.where(live, y * a_new, bi)
+            torch.where(live[:, None], f + (b_new - bi)[:, None] * rows[i], f, out=f)
+            bi.copy_(b_new)
+    alpha.copy_(b[0] if one else b)
+    return alpha
