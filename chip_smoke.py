@@ -117,11 +117,17 @@ non-zero exit code:
      launch counter is 0 before each streamed run and read after it;
  17. the second solver (``solver="bdca"``, dual coordinate ascent on the
      kernel cache): (a) ``bdca_ascent`` bit for bit against its plain
-     version at the binary shape (C = 1, S = 501), the class shape (C = 10,
-     S = 508), ragged shapes (S = 37, classes below their count, frozen
-     slots, slots at the box, rounds 1 and 4) and two columns a thread (S =
-     1,100), with µs a call, device µs a launch, the plain version's µs and
-     the bound; (b) one bdca epoch of phase 4's ADULT stand-in (the cache,
+     version at the binary shape (C = 1, S = 501) and the class shape (C =
+     10, S = 508), each also at 0 rounds, ragged shapes (S = 37, classes
+     below their count, frozen slots, slots at the box, rounds 1 and 4),
+     the chain's block edges (S = 70: counts 31, 32, 33 and 65 at rounds 1
+     and 3; counts 1 and 0) and S = 1,100, with µs a call, device µs a
+     launch, the plain version's µs and the bound; at the binary and class
+     shapes the launch split into its initial pass (rounds 0) and its
+     sweep's ns a coordinate, the chain warp alone (clock64 cycles a
+     coordinate) and the chain floor (the dependent instructions of a link
+     read from the kernel's SASS, their latencies measured on the card);
+     (b) one bdca epoch of phase 4's ADULT stand-in (the cache,
      ``bdca_C = box_from_lambda(n, 1e-5)``, 2 rounds; ``bdca_ascent`` once a
      step, its gap to the binary fused bsgd run); (c) run (a)'s class axis
      under bdca for one epoch (``bdca_C`` from the 60,000 rows; its gap to
@@ -2638,61 +2644,184 @@ def _bdca_work(kmat_shape, counts, rounds):
     return n_bytes, n_ops
 
 
-def phase_bdca_kernel(ops, ref, card):
+# SASS opcodes with no destination, and those with two (a predicate first)
+_SASS_NO_DEST = ("ST", "STS", "STG", "STL", "RED", "BAR", "BRA", "BSYNC", "BSSY", "EXIT", "NOP",
+                 "WARPSYNC", "CALL", "RET", "MEMBAR", "DEPBAR", "YIELD", "JMP", "BREAK")
+_SASS_TWO_DESTS = ("FSETP", "ISETP", "DSETP", "HSETP2", "SHFL")
+
+
+def _sass_chain_link(sass: str, function: str):
+    """The dependent instructions of one link of the chain in ``function``'s
+    SASS (``cuobjdump -sass``): from one ``SHFL`` of the unrolled chain (a
+    delta handed out) along register dependences to the value the next
+    ``SHFL`` hands out, the longest such path by instruction count.  Returns
+    the opcodes in path order, the first being the ``SHFL``: the path most
+    consecutive shuffle pairs share (the unrolled chain's), or None if no
+    shuffle feeds the next."""
+    import re
+
+    body = next((part for part in sass.split("Function : ")[1:]
+                 if function in part.split("\n", 1)[0]), None)
+    if body is None:
+        return None
+    instrs = []
+    for line in body.splitlines():
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if not m:
+            continue
+        text = m.group(1)
+        guard = re.match(r"@!?(U?P\d+)\s+", text)
+        if guard:
+            text = text[guard.end():]
+        op, _, rest = text.partition(" ")
+        regs = [re.findall(r"(?<![\w.])(U?R\d+|U?P\d+)", o) for o in rest.split(",")]
+        base = op.split(".")[0]
+        n_dest = 0 if base in _SASS_NO_DEST else 2 if base in _SASS_TWO_DESTS else 1
+        dests = [r for o in regs[:n_dest] for r in o]
+        srcs = [r for o in regs[n_dest:] for r in o] + ([guard.group(1)] if guard else [])
+        instrs.append((op, dests, srcs))
+    shfl = [i for i, (op, _, _) in enumerate(instrs) if op.startswith("SHFL")]
+    paths = []
+    for a, b in zip(shfl, shfl[1:]):      # consecutive shuffles: a link where one feeds the next
+        path = {r: [instrs[a][0]] for r in instrs[a][1]}
+        for op, dests, srcs in instrs[a + 1:b]:
+            came = [path[r] for r in srcs if r in path]
+            for r in dests:
+                if came:
+                    path[r] = max(came, key=len) + [op]
+                else:
+                    path.pop(r, None)
+        value = instrs[b][2][0] if instrs[b][2] else None
+        if value in path:
+            paths.append(tuple(path[value]))
+    if not paths:
+        return None
+    return list(max(set(paths), key=paths.count))    # the unrolled chain's link, the most common
+
+
+def _bdca_chain_floor(_build, counts, rounds):
+    """The chain's floor at one shape: the dependent instructions of a link
+    read from the kernel's SASS, the latencies of an fp32 add, a shuffle and
+    the clip's max.NaN measured on this card (``latency_probe_cuda``,
+    clock64 cycles; any other instruction counted as an add), and the
+    longest chain of coordinates (max count x rounds) at the card's
+    ``clocks.max.sm``.  Returns a line for the log."""
+    from repro_torch.kernels import bdca as bdca_kernel
+
+    add, shfl, clip = bdca_kernel.latency_probe_cuda()
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    try:
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path("bdca_ascent"))],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, check=True, timeout=60).stdout.split(",")
+    except (OSError, subprocess.SubprocessError) as exc:
+        return f"chain floor not measured ({exc})"
+    link = _sass_chain_link(sass, "bdca_ascent_staged")
+    if link is None:
+        return "chain floor not measured (no chain link found in the SASS)"
+    n_shfl = sum(op.startswith("SHFL") for op in link)
+    n_clip = sum(op.startswith("FMNMX") for op in link)
+    n_add = len(link) - n_shfl - n_clip
+    cycles = n_shfl * shfl + n_clip * clip + n_add * add
+    max_mhz, now_mhz = float(clock[0]), float(clock[1])
+    coords = max(counts) * rounds
+    floor_us = coords * cycles / max_mhz
+    return (f"chain floor {floor_us:.2f} us = {coords} coordinates x {cycles:.1f} "
+                   f"cycles a link at {max_mhz:.0f} MHz (clocks.max.sm; clocks.sm {now_mhz:.0f} "
+                   f"MHz now): SASS link {' > '.join(link)} ({n_shfl} shuffle at {shfl:.2f} "
+                   f"cycles, {n_clip} max/min.NaN at {clip:.2f}, {n_add} other fp32 at "
+                   f"{add:.2f}: clock64 on this card)")
+
+
+def phase_bdca_kernel(ops, ref, _build, card):
     """(a) bdca_ascent against its plain version, bit for bit, at the binary
-    shape (C = 1, S = 501), the class shape (C = 10, S = 508) and a ragged
-    one (C = 3, S = 37: classes below their count, frozen slots, slots at
-    the box, rounds 1 and 4) and at two columns a thread (C = 2, S = 1,100);
-    returns the binary shape's record."""
+    shape (C = 1, S = 501), the class shape (C = 10, S = 508), both also at
+    0 rounds (only f = b @ k and the write-back), ragged ones (C = 3, S =
+    37: classes below their count, frozen slots, slots at the box, rounds 1
+    and 4), the chain's block edges (C = 4, S = 70, counts 31, 32, 33 and
+    65, ragged, rounds 1 and 3; C = 2, counts 1 and 0) and at S = 1,100.
+    At the binary and class shapes it also splits the launch (the initial
+    pass from rounds 0, the sweep's ns a coordinate from rounds 2 less 0),
+    times the chain warp alone (``chain_probe_cuda``) and gives the chain
+    floor from the SASS beside the bytes bound.  Returns the binary shape's
+    record."""
+    from repro_torch.kernels import bdca as bdca_kernel
+
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 17)
     C = 3.8389
+    class_counts = [500 + q % 9 for q in range(10)]
+    edges = [31, 32, 33, 65]
     cases = [("binary", 1, 501, [501], BDCA_ROUNDS, "random"),
-             ("class", 10, 508, [500 + q % 9 for q in range(10)], BDCA_ROUNDS, "random"),
+             ("class", 10, 508, class_counts, BDCA_ROUNDS, "random"),
              ("ragged r1", 3, 37, [37, 20, 0], 1, "ragged"),
              ("ragged r4", 3, 37, [36, 1, 2], 4, "ragged"),
+             ("block edges r1", 4, 70, edges, 1, "ragged"),
+             ("block edges r3", 4, 70, edges, 3, "ragged"),
+             ("counts 1 and 0", 2, 70, [1, 0], BDCA_ROUNDS, "ragged"),
              ("two columns a thread", 2, 1100, [1100, 640], 1, "random")]
     record = None
     for label, c, s, counts, rounds, case in cases:
         a0, k, n = _bdca_state(gen, c, s, counts, dev, C, case)
         if c == 1:
             a0, k, n = a0[0], k[0], n.reshape(())
-        got = ops.bdca_ascent(a0.clone(), k, n, C, rounds, impl="cuda")
-        want = ref.bdca_ascent(a0.clone(), k, n, C, rounds)
-        err = (got - want).abs().max().item()
-        equal = torch.equal(got, want)
-        box = bool((got.abs() <= float(np.float32(C))).all())
-        stale = bool((got.reshape(c, s)[torch.arange(s, device=dev)[None, :]
-                                        >= n.reshape(c, 1)] == 0).all())
-        a = a0.clone()
+        timed, split = label in ("binary", "class"), {}
+        for r in ((0, rounds) if timed else (rounds,)):
+            got = ops.bdca_ascent(a0.clone(), k, n, C, r, impl="cuda")
+            want = ref.bdca_ascent(a0.clone(), k, n, C, r)
+            err = (got - want).abs().max().item()
+            equal = torch.equal(got, want)
+            box = bool((got.abs() <= float(np.float32(C))).all())
+            stale = bool((got.reshape(c, s)[torch.arange(s, device=dev)[None, :]
+                                            >= n.reshape(c, 1)] == 0).all())
+            a = a0.clone()
 
-        def call():
-            a.copy_(a0)
-            ops.bdca_ascent(a, k, n, C, rounds, impl="cuda")
+            def call():
+                a.copy_(a0)
+                ops.bdca_ascent(a, k, n, C, r, impl="cuda")
 
-        k_ms = time_call(call)
-        d_ms = device_ms(call, "bdca_ascent")
-        p_ms = time_call(lambda: ref.bdca_ascent(a0.clone(), k, n, C, rounds), calls=1,
-                         repeats=3, warmup=1)
-        n_bytes, n_ops = _bdca_work((c, s, s), counts, rounds)
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
-        sweep_bytes = (rounds + 1) * s * s * 4 * c
-        sweep_us = sweep_bytes / HBM_BYTES_PER_S * 1e6
-        chain = max(counts) * rounds
-        per = "not measured" if d_ms is None else f"{d_ms * 1e6 / chain:.1f} ns"
-        print(f"bdca_ascent {label} C={c} S={s} counts {counts[:4]}{'...' if c > 4 else ''} "
-              f"rounds {rounds} ({card}): max_abs_err {err:.3e} (tol 0, bit for bit) equal "
-              f"{equal}; box holds {box}; stale slots zero {stale}; kernel {k_ms * 1e3:.2f} us "
-              f"a call (with a {c * s * 4}-byte copy of alpha), device {us(d_ms)} a launch ({per} "
-              f"a coordinate of the chain), plain {p_ms * 1e3:.2f} us; bound {b_ms * 1e3:.4f} us ({b_by}: the active blocks read "
-              f"once); (rounds + 1) S^2 x 4 bytes a class, all classes {sweep_bytes} "
-              f"({sweep_us:.4f} us at 3.35 TB/s); serial chain {chain} coordinates "
-              f"({max(counts)} x {rounds} rounds)")
-        check(equal and err == 0.0, f"bdca_ascent {label}: differs from its plain version")
-        check(box and stale, f"bdca_ascent {label}: box or stale slots")
-        if label == "binary":
-            record = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                          library_ms=None, device_ms=d_ms)
+            k_ms = time_call(call)
+            d_ms = device_ms(call, "bdca_ascent")
+            p_ms = time_call(lambda: ref.bdca_ascent(a0.clone(), k, n, C, r), calls=1,
+                             repeats=3, warmup=1)
+            n_bytes, n_ops = _bdca_work((c, s, s), counts, r)
+            b_ms, b_by = bound_ms(n_bytes, n_ops)
+            chain = max(counts) * r
+            per = ("not measured" if d_ms is None or chain == 0
+                   else f"{d_ms * 1e6 / chain:.1f} ns")
+            print(f"bdca_ascent {label} C={c} S={s} counts {counts[:4]}"
+                  f"{'...' if c > 4 else ''} rounds {r} ({card}): max_abs_err {err:.3e} (tol 0, "
+                  f"bit for bit) equal {equal}; box holds {box}; stale slots zero {stale}; "
+                  f"kernel {k_ms * 1e3:.2f} us a call (with a {c * s * 4}-byte copy of alpha), "
+                  f"device {us(d_ms)} a launch ({per} a coordinate of the chain), plain "
+                  f"{p_ms * 1e3:.2f} us; bound {b_ms * 1e3:.4f} us ({b_by}: the active blocks "
+                  f"read once); serial chain {chain} coordinates ({max(counts)} x {r} rounds)")
+            check(equal and err == 0.0, f"bdca_ascent {label} rounds {r}: differs from its "
+                                        f"plain version")
+            check(box and stale, f"bdca_ascent {label} rounds {r}: box or stale slots")
+            if timed:
+                split[r] = d_ms
+            if label == "binary" and r == rounds:
+                record = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=None, device_ms=d_ms)
+        if timed:
+            chain = max(counts) * rounds
+            sweep = ("not measured" if None in split.values()
+                     else f"{(split[rounds] - split[0]) * 1e6 / chain:.1f} ns")
+            cycles = bdca_kernel.chain_probe_cuda(a0.clone(), k, n, C, rounds)
+            p_ms = device_ms(lambda: bdca_kernel.chain_probe_cuda(a0.clone(), k, n, C, rounds),
+                             "bdca_chain_probe")
+            per_coord = cycles[0].max().item() / chain
+            in_loop = cycles[1].max().item() / chain
+            floor = _bdca_chain_floor(_build, counts, rounds)
+            print(f"bdca_ascent {label} split ({card}): initial pass f = b @ k and write-back "
+                  f"{us(split[0])} a launch (rounds 0); the sweep {sweep} a coordinate "
+                  f"(rounds {rounds} less 0, {chain} coordinates); the chain warp alone "
+                  f"(no bulk) {us(p_ms)} a launch, {per_coord:.1f} clock64 cycles a coordinate, "
+                  f"{in_loop:.1f} of them in the chain loop (the rest gathers and copies); "
+                  f"{floor}; beside the bound {b_ms * 1e3:.4f} us ({b_by})")
     return record
 
 
@@ -2937,8 +3066,9 @@ def phase_bdca(core, mc, ops, ref, data, mc_data, fused_acc, run_a_acc, card):
     """Phase 17: the second solver.  Returns the kernel record and the
     launches of its main paths (b), (c) and (e)."""
     from repro_torch.core import kernel_cache
+    from repro_torch.kernels import _build
 
-    record = phase_bdca_kernel(ops, ref, card)
+    record = phase_bdca_kernel(ops, ref, _build, card)
     counts = {}
     run_b = phase_bdca_binary(core, ops, data, fused_acc, card)
     _add(counts, run_b[0]["launches"])

@@ -2,7 +2,7 @@
 
     python3 src/repro_torch/pair_timing.py --tree build/parent/src --tree src \
         [--pairs 10] [--steps 1000] [--class-steps 50] [--fused-steps 500] \
-        [--calls 2000] [--out pair_timing.json]
+        [--calls 2000] [--kernels-only] [--out pair_timing.json]
 
 Each ``--tree`` is a ``src`` directory holding a ``repro_torch`` package (for
 example the parent commit unpacked beside the working tree).  One worker
@@ -36,6 +36,12 @@ margin row, run (a)'s margin rows, a minibatch of 32 against that bank,
 decision values), fp32 and bf16, on inputs from one seed: each worker
 reports, once both are ready and one at a time, the SHA-256 of every
 output and its device time a launch (``torch.profiler``).
+The same holds for ``bdca_ascent`` at ``BDCA_SHAPES`` (the binary bdca
+step's shape, C = 1, S = 501, count 501, and the class axis's, C = 10, S =
+508), at 0, 1 and 2 rounds (0 runs only the initial ``f = b @ k`` and the
+write-back), on inputs from one seed: SHA-256 of alpha after the call, and
+device time a launch.  ``--kernels-only`` runs these kernel checks alone:
+no training, no split, no pairs.
 Before the pairs, each worker in turn (the other waiting) also splits the
 fused step (``train_step``) of each fused configuration: its device time a
 launch (``torch.profiler``, ``SPLIT_STEPS`` steps, each from the warm
@@ -46,8 +52,8 @@ margin rows and the insert alone).
 Prints each run and, per configuration, each tree's median, quartiles, mean
 and range, the same of the paired differences (second tree minus first) and
 in how many pairs the second tree was slower; ``--out`` also writes them as
-JSON.  Exits 1 if the two trees' decisions or rbf_matrix bits differ
-anywhere.
+JSON.  Exits 1 if the two trees' decisions, rbf_matrix bits or
+bdca_ascent bits differ anywhere.
 """
 from __future__ import annotations
 
@@ -77,11 +83,17 @@ MC_WARM_STEPS = 700
 SPLIT_STEPS = 50
 # rbf_matrix's shapes (n, m, d) held bit for bit across the trees
 RBF_SHAPES = [(1, 501, 123), (8, 5_080, 780), (32, 5_080, 780), (6_512, 501, 123)]
+# bdca_ascent's shapes (C, S, counts) and rounds, held bit for bit across the
+# trees; the box is the binary bdca run's (box_from_lambda(26,049, 1e-5))
+BDCA_SHAPES = [(1, 501, [501]), (10, 508, [500 + q % 9 for q in range(10)])]
+BDCA_ROUNDS = (0, 1, 2)
+BDCA_BOX = 3.8389
 
 
-def worker(tree: str) -> None:
+def worker(tree: str, kernels_only: bool) -> None:
     """Serve ``run <method> <steps>`` and ``op <name> <calls>`` requests on
-    stdin, one JSON line each."""
+    stdin, one JSON line each (with ``kernels_only``, only the kernel
+    checks)."""
     sys.path.insert(0, str(Path(tree).resolve()))
     import numpy as np
     import torch
@@ -91,6 +103,12 @@ def worker(tree: str) -> None:
 
     _build.build()
     dev = torch.device("cuda")
+    checks = {"rbf": _rbf_checks, "bdca": _bdca_checks}
+    if kernels_only:
+        print(json.dumps({"ready": tree, "decisions": {}}), flush=True)
+        for line in sys.stdin:
+            print(json.dumps(checks[line.strip()](dev)), flush=True)
+        return
     x, y = make_blobs(np.random.default_rng(0), N_ROWS, DIM, sep=0.25, noise=1.3)
     (xtr, ytr), _ = train_test_split(x, y, test_frac=0.2)
     perm = torch.randperm(xtr.shape[0], generator=torch.Generator().manual_seed(0))
@@ -131,8 +149,9 @@ def worker(tree: str) -> None:
     print(json.dumps({"ready": tree, "decisions": {m: _decisions(w[2]) for m, w in warm.items()}}),
           flush=True)
     for line in sys.stdin:
-        if line.strip() in ("rbf", "split"):   # device times, taken while the other waits
-            print(json.dumps(_rbf_checks(dev) if line.strip() == "rbf" else split()), flush=True)
+        if line.strip() in ("rbf", "bdca", "split"):   # device times, while the other waits
+            what = line.strip()
+            print(json.dumps(split() if what == "split" else checks[what](dev)), flush=True)
             continue
         head, n = line.rsplit(" ", 1)
         kind, n = head.removeprefix("run "), int(n)
@@ -170,7 +189,6 @@ def _rbf_checks(dev) -> dict:
     import hashlib
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
 
     out = {}
@@ -181,19 +199,64 @@ def _rbf_checks(dev) -> dict:
             x, y = x32.to(dev, dtype), y32.to(dev, dtype)
             k = ops.rbf_matrix(x, y, 2.0 ** -7, impl="cuda")
             digest = hashlib.sha256(k.cpu().numpy().tobytes()).hexdigest()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(50):
-                    ops.rbf_matrix(x, y, 2.0 ** -7, impl="cuda")
-                torch.cuda.synchronize()
-            total, count = 0.0, 0
-            for ev in prof.key_averages():
-                if "rbf_" in ev.key:
-                    total += (getattr(ev, "device_time_total", 0.0)
-                              or getattr(ev, "cuda_time_total", 0.0))
-                    count += ev.count
-            out[f"{n}x{m}x{d} {str(dtype)[6:]}"] = dict(
-                sha256=digest, device_us=total / count if count and total > 0 else None)
+            out[f"{n}x{m}x{d} {str(dtype)[6:]}"] = dict(sha256=digest, device_us=_device_us(
+                lambda: ops.rbf_matrix(x, y, 2.0 ** -7, impl="cuda"), 50, "rbf_"))
+    return out
+
+
+def _device_us(call, calls: int, kernel: str):
+    """Mean device µs a launch of the kernels whose name holds ``kernel``
+    over ``calls`` calls of ``call``, from ``torch.profiler`` (None if it
+    reports no such kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            total += getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
+            count += ev.count
+    return total / count if count and total > 0 else None
+
+
+def _bdca_checks(dev) -> dict:
+    """``{"C=c S=s rN": {"sha256": ..., "device_us": ...}}`` of
+    ``ops.bdca_ascent`` at each of ``BDCA_SHAPES`` and ``BDCA_ROUNDS``: a
+    unit-diagonal RBF Gram matrix of random points (exactly symmetric) and
+    coefficients inside the box, from one seed a shape; alpha's SHA-256
+    after one call, and the device time a launch from ``torch.profiler``
+    over 20 launches, each on a fresh copy of alpha (None if it reports no
+    such kernel)."""
+    import hashlib
+
+    import torch
+    from repro_torch.kernels import ops
+
+    out = {}
+    for c, s, counts in BDCA_SHAPES:
+        gen = torch.Generator().manual_seed(c * 1_000 + s)
+        x = torch.randn(c, s, 8, generator=gen)
+        k = torch.exp(-0.3 * ((x[:, :, None, :] - x[:, None, :, :]) ** 2).sum(-1))
+        k[:, torch.arange(s), torch.arange(s)] = 1.0
+        sign = torch.where(torch.rand(c, s, generator=gen) < 0.5, -1.0, 1.0)
+        a0 = (torch.rand(c, s, generator=gen) * BDCA_BOX * sign).to(dev)
+        k, n = k.to(dev), torch.tensor(counts, dtype=torch.int32, device=dev)
+        for rounds in BDCA_ROUNDS:
+            a = a0.clone()
+            ops.bdca_ascent(a, k, n, BDCA_BOX, rounds, impl="cuda")
+            digest = hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest()
+
+            def call():
+                a.copy_(a0)
+                ops.bdca_ascent(a, k, n, BDCA_BOX, rounds, impl="cuda")
+
+            out[f"C={c} S={s} r{rounds}"] = dict(sha256=digest,
+                                                  device_us=_device_us(call, 20, "bdca_ascent"))
     return out
 
 
@@ -208,7 +271,6 @@ def _step_device_us(step_fn, cfg, table, state, data, start, rows):
     next minibatch of ``rows`` rows from row ``start`` of ``data``; None if
     the profiler reports no such kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     x, y = data
 
@@ -219,14 +281,7 @@ def _step_device_us(step_fn, cfg, table, state, data, start, rows):
         torch.cuda.synchronize()
 
     steps()                                   # warm: allocations, the profiler's first window
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        steps()
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if "train_step_kernel" in ev.key:
-            total += getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
-            count += ev.count
-    return total / count if count and total > 0 else None
+    return _device_us(steps, 1, "train_step_kernel")
 
 
 def _class_data(dev):
@@ -303,17 +358,23 @@ def main() -> int:
     ap.add_argument("--class-steps", type=int, default=50)
     ap.add_argument("--fused-steps", type=int, default=500)
     ap.add_argument("--calls", type=int, default=2_000)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="only the rbf_matrix and bdca_ascent checks: no training, no pairs")
     ap.add_argument("--out", default=None)
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker(args.worker)
+        worker(args.worker, args.kernels_only)
         return 0
     if len(args.tree) != 2:
         ap.error("give exactly two --tree")
-    procs = [subprocess.Popen([sys.executable, __file__, "--tree", t, "--worker", t],
+    extra = ["--kernels-only"] if args.kernels_only else []
+    procs = [subprocess.Popen([sys.executable, __file__, "--tree", t, "--worker", t, *extra],
                               stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
              for t in args.tree]
+    checks = [("rbf", "rbf_matrix"), ("bdca", "bdca_ascent")]
+    if not args.kernels_only:
+        checks.append(("split", "split_device_us"))
     same = {}
     try:
         ready = []
@@ -322,22 +383,25 @@ def main() -> int:
             print(f"worker {t}: {json.dumps(ready[-1])}", flush=True)
         same["warm states"] = ready[0]["decisions"] == ready[1]["decisions"]
         for r, p in zip(ready, procs):   # one worker at a time: the card is quiet
-            for what, key in (("rbf", "rbf_matrix"), ("split", "split_device_us")):
+            for what, key in checks:
                 p.stdin.write(f"{what}\n")
                 p.stdin.flush()
                 r[key] = json.loads(_reply(p))
-            print(f"worker {r['ready']}: fused-step device us a launch "
-                  f"{json.dumps(r['split_device_us'])}", flush=True)
-        for shape, first in ready[0]["rbf_matrix"].items():
-            second = ready[1]["rbf_matrix"][shape]
-            same[f"rbf_matrix {shape} bits"] = first["sha256"] == second["sha256"]
-            print(f"rbf_matrix {shape}: device us a launch {first['device_us']} (first tree) "
-                  f"{second['device_us']} (second); bit-equal "
-                  f"{same[f'rbf_matrix {shape} bits']}", flush=True)
-        kinds = {**{m: args.steps for m in BINARY},
-                 **{r: args.class_steps if r == "multi-merge (b)" else args.fused_steps
-                    for r in CLASS_RUNS},
-                 **{o: args.calls for o in OPS}}
+            if "split_device_us" in r:
+                print(f"worker {r['ready']}: fused-step device us a launch "
+                      f"{json.dumps(r['split_device_us'])}", flush=True)
+        for kernel in ("rbf_matrix", "bdca_ascent"):
+            for shape, first in ready[0][kernel].items():
+                second = ready[1][kernel][shape]
+                key = f"{kernel} {shape} bits"
+                same[key] = first["sha256"] == second["sha256"]
+                print(f"{kernel} {shape}: device us a launch {first['device_us']} (first tree) "
+                      f"{second['device_us']} (second); bit-equal {same[key]}", flush=True)
+        kinds = {} if args.kernels_only else {
+            **{m: args.steps for m in BINARY},
+            **{r: args.class_steps if r == "multi-merge (b)" else args.fused_steps
+               for r in CLASS_RUNS},
+            **{o: args.calls for o in OPS}}
         runs = {m: {t: [] for t in args.tree} for m in kinds}
         for k in range(args.pairs):
             order = (0, 1) if k % 2 == 0 else (1, 0)          # A B, B A, A B, ...
@@ -369,14 +433,13 @@ def main() -> int:
         print(f"{method}: {json.dumps({t: report[method]['summary'][t] for t in args.tree})}")
         print(f"{method}: second minus first, per pair: {json.dumps(_summary(diffs))}; "
               f"second slower in {report[method]['second_slower_in']} of {len(diffs)} pairs")
-    print(f"decisions (count, n_inserts, n_merges) and rbf_matrix bits equal between the "
-          f"trees: {json.dumps(same)}")
+    print(f"decisions (count, n_inserts, n_merges), rbf_matrix and bdca_ascent bits equal "
+          f"between the trees: {json.dumps(same)}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
             steps=kinds, trees=args.tree, methods=report, decisions_equal=same,
-            split_device_us={t: r["split_device_us"] for t, r in zip(args.tree, ready)},
-            rbf_matrix={t: r["rbf_matrix"] for t, r in zip(args.tree, ready)}),
+            **{key: {t: r[key] for t, r in zip(args.tree, ready)} for _, key in checks}),
             indent=1))
     return 0 if all(same.values()) else 1
 

@@ -43,16 +43,16 @@ BASE = dict(budget=16, lambda_=1e-3, gamma=2.0, batch_size=4, solver="bdca",
             use_kernel_cache=True, bdca_C=1.5, unroll_maintenance=True)
 
 
-def _working_set(seed, count, C, frozen=(), at_box=()):
+def _working_set(seed, count, C, frozen=(), at_box=(), slots=SLOTS):
     """The reference test's working set: a unit-diagonal exact Gram (fp32),
     signed coefficients inside the box, zeros past the watermark; slots in
     ``frozen`` set to 0 and those in ``at_box`` to +-C."""
     rng = np.random.default_rng(seed)
-    sv = rng.normal(0.0, 1.0, (SLOTS, DIM)).astype(np.float32)
+    sv = rng.normal(0.0, 1.0, (slots, DIM)).astype(np.float32)
     d2 = ((sv[:, None] - sv[None, :]) ** 2).sum(-1)
     kmat = np.exp(-0.8 * d2).astype(np.float32)
     np.fill_diagonal(kmat, 1.0)
-    a = rng.uniform(0.0, C, SLOTS) * rng.choice([-1.0, 1.0], SLOTS)
+    a = rng.uniform(0.0, C, slots) * rng.choice([-1.0, 1.0], slots)
     a[list(frozen)] = 0.0
     a[list(at_box)] = C * np.sign(a[list(at_box)] + 1e-3)
     a[count:] = 0.0
@@ -117,6 +117,55 @@ def test_ascent_rounds_equals_reference(rounds, case):
     np.testing.assert_array_equal(got[count:], 0.0)
     np.testing.assert_array_equal(got[list(frozen)], 0.0)
     assert np.abs(got).max() <= np.float32(C)
+
+
+@pytest.mark.parametrize("count,rounds", [(31, 1), (32, 1), (33, 3), (65, 1), (65, 3), (1, 2),
+                                          (24, 0), (65, 0)])
+def test_ascent_rounds_block_edges_equal_reference(count, rounds):
+    """The kernel walks the chain 32 coordinates at a time: counts either
+    side of a block's edge (31, 32, 33, 65 of 70 slots), one coordinate,
+    and rounds 0 (only f = b @ k and the stale slots zeroed), with frozen
+    slots and slots at the box on both sides of an edge."""
+    C = 0.9
+    frozen = tuple(i for i in (0, 30, 31, 32, 64) if i < count)
+    at_box = tuple(i for i in (5, 33, 63) if i < count)
+    a, k, n = _working_set(40 + count + rounds, count, C, frozen=frozen, at_box=at_box,
+                           slots=70)
+    a[count:] = 0.4                                             # garbage past the count
+    got = tbdca.ascent_rounds(*_t(a, k, n), C, rounds).numpy()
+    want = np.asarray(jbdca.ascent_rounds(*_j(a, k, n), C, rounds))
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+    np.testing.assert_array_equal(got[count:], 0.0)
+    np.testing.assert_array_equal(got[list(frozen)], 0.0)
+    if rounds == 0:
+        np.testing.assert_array_equal(got[:count], a[:count])
+    assert np.abs(got).max() <= np.float32(C)
+
+
+@pytest.mark.parametrize("s,want", [(1, (1, 64, 440)), (37, (1, 96, 14552)),
+                                    (501, (1, 544, 196440)), (508, (1, 544, 199184)),
+                                    (512, (1, 544, 200752)), (513, (2, 320, 4104)),
+                                    (1100, (4, 320, 8800)), (4096, (8, 544, 32768)),
+                                    (16_384, (32, 544, 131072))])
+def test_ascent_kernel_geometry(s, want):
+    """The launch geometry: a chain warp and at most 16 bulk warps, whose
+    columns a thread (1, 2, 4, 8 or 32) cover every slot, and b twice in
+    shared memory (with three buffers of 32 staged cache rows at one column
+    a thread), within a block's limits on the card."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bdca as kbdca
+    nq, threads, smem = kbdca.geometry(s)
+    assert (nq, threads, smem) == want
+    assert threads % 32 == 0 and 32 < threads <= 544 and nq * (threads - 32) >= s
+    assert nq * (threads - 64) < s or threads == 64             # no whole bulk warp to spare
+    assert smem <= _build.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("s", [0, -1, 16_385])
+def test_ascent_kernel_geometry_refuses(s):
+    from repro_torch.kernels import bdca as kbdca
+    with pytest.raises(ValueError, match="slots"):
+        kbdca.geometry(s)
 
 
 def test_ascent_kernel_op_is_in_place_and_zeroes_stale_slots():
