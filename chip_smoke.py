@@ -79,17 +79,28 @@ non-zero exit code:
      and choice (``impl="ref"``): count, sv_x, alpha and kmat equal bit for
      bit at every round;
  15. serving (run after phase 11's runs), from run (c)'s state exported with
-     an fp32 and a bf16 bank: the 10,000 test rows' scores in one direct
-     call and as microbatches at every bucket of ``default_buckets(256)``
-     and at the ragged trace's offsets, bit-equal; ``class_scores`` bit-equal
-     to its plain version at the serve shape, on a ragged C = 3, s = 37 with
-     an exact tie and on a binary model with an exact zero score; the device
-     time of ``rbf_tiled`` at 8, 64 and 256 rows and of ``class_scores``
-     beside their bounds; ``drive_trace`` over the ragged trace with the
-     sync and the async queue, each bank (every launch counter 0 before and
-     read after), with no kernel library loaded and no device memory
-     reserved after the warm-up; labels equal ``predict_multiclass`` and
-     accuracy run (c)'s; a checkpoint written and served back bit-equal;
+     an fp32 and a bf16 bank: the serve cell (one ``class_scores`` launch)
+     over the 10,000 test rows in one direct call bit-equal, scores and
+     labels, to today's cell (``rbf_tiled``'s K contracted by the plain
+     version), and as microbatches at every bucket of
+     ``default_buckets(256)`` and at the ragged trace's offsets bit-equal to
+     the direct call; the same against today's cell at 8, 16, 100 and 200
+     rows (each of the kernel's row tiles) on a ragged C = 3, s = 37 with an
+     exact tie, a binary model with exact zero scores, rows holding NaN and
+     Inf (multiclass and binary) and C = 40, s = 1,008, d = 5; over the
+     10,000 rows and at 8, 64 and 256 rows, each bank, the cell against the
+     plain version (``rbf_matrix_rows`` then ``class_scores_labels``: scores
+     within 1e-5 of the products' size, labels equal off near-ties) and
+     ``rbf_tiled`` against ``rbf_matrix_rows`` within 1e-5; its device time
+     at 8, 64 and 256 rows, each bank, beside its bound, the plain version
+     and the contraction's einsum;
+     ``drive_trace`` over the ragged trace with the sync and the async
+     queue, each bank (every launch counter 0 before and read after: one
+     ``class_scores`` launch a serve cell, no ``rbf_matrix``), with no kernel
+     library loaded and no device memory reserved after the warm-up; a
+     profiled window of each queue beside the launch counters; labels equal
+     ``predict_multiclass`` and accuracy run (c)'s; a checkpoint written and
+     served back bit-equal;
  16. streaming (after phase 14), every time and byte count beside the card's
      name and power limit: (a) run (c)'s configuration streamed from the
      60,000 training rows written as 15 npz chunks of 4,100 rows (rows carry
@@ -1526,12 +1537,13 @@ def phase_class_replay(mc, kernel_cache, data):
 
 def _profile(step, steps: int, label: str, steps_per_call: int = 1):
     """Device busy time per step over ``steps`` calls of ``step(i)``, each
-    call ``steps_per_call`` training steps."""
+    call ``steps_per_call`` training steps.  Returns how many windows it
+    ran and the last one's (device µs, count, name) rows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    for _ in range(3):      # a window now and then returns no kernel events
+    for window in range(3):      # a window now and then returns no kernel events
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for i in range(steps):
@@ -1553,6 +1565,7 @@ def _profile(step, steps: int, label: str, steps_per_call: int = 1):
           f"kernels {launches / steps:.1f} per step")
     for dt, count, key in sorted(rows, reverse=True)[:10]:
         print(f"  {dt / steps:8.3f} us/step  {count / steps:5.2f}/step  {key[:90]}")
+    return {"windows": window + 1, "rows": rows}
 
 
 def phase_class_profile(mc, runs, data):
@@ -1993,53 +2006,120 @@ def phase_choose_lockstep(mc, budget_mod, data, run_b):
 # phase 15: the serving configuration's queue geometry and the kernel shapes
 SERVE_MAX_BATCH = 256
 SERVE_TIMED_ROWS = (8, 64, 256)
+# row counts at which the serve cell's rule (csrc/class_scores.cu CELL_RULE)
+# takes its 8-, 16-, 32- and 64-row tile
+SERVE_CASE_ROWS = (8, 16, 100, 200)
+# the serve cell against its plain version (ref.rbf_matrix_rows, then
+# ref.class_scores_labels): K within SERVE_K_TOL; scores within SERVE_K_TOL
+# times the largest sum of the products' sizes, sum_j |K[i, c s + j]
+# alpha[c, j]| (at least 1), the scale of a sum's rounding; labels equal
+# wherever the plain version's two best classes are more than twice that
+# apart
+SERVE_K_TOL = 1e-5
 
 
-def _class_scores_work(n, c, s):
-    """(bytes, operations) of one class_scores call: K (n, C s) and alpha read
-    once, scores (C, n) and labels (n,) written once; a multiply and an add a
-    product, C - 1 compares a row."""
-    return 4.0 * (n * c * s + c * s + c * n + n), 2.0 * n * c * s + n * (c - 1)
+def _serve_cell_work(n, c, s, d, x_elem, bank_elem):
+    """(bytes, operations) of one serve cell (the one class_scores launch): x
+    (n, d), the bank (C s, d) and alpha (C, s) read once, scores (C, n) and
+    labels (n,) written once; two a multiply-add of x.y and of the norms,
+    five an output of K (the epilogue), two a product of the contraction,
+    C - 1 compares a row."""
+    m = c * s
+    return (x_elem * n * d + bank_elem * m * d + 4.0 * (m + c * n + n),
+            2.0 * n * m * d + 2.0 * (n + m) * d + 5.0 * n * m + 2.0 * n * m + n * (c - 1))
 
 
-def _serve_kernel_cases(ref, class_scores_cuda, gen):
-    """class_scores against its plain version, bit for bit, on inputs built to
-    meet its edge cases: a ragged C = 3, s = 37; a binary C = 1 model with an
-    exact zero score; an exact tie between two classes."""
+def _serve_cell_want(ref, rbf_kernel, x, bank, alpha, gamma, binary=False):
+    """Today's cell on the card: rbf_tiled's K contracted by the plain version."""
+    k = rbf_kernel.rbf_matrix_cuda(x, bank, gamma, path="tiled")
+    return ref.class_scores_labels(k, alpha, binary=binary)
+
+
+def _bit_equal(got, want) -> bool:
+    """Scores and labels equal bit for bit (a NaN equal to the same NaN)."""
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32)) if g.dtype == torch.float32
+               else torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _serve_cell_plain(ref, rbf_kernel, got, x, bank, alpha, gamma):
+    """The serve cell's scores and labels ``got`` and ``rbf_tiled``'s K
+    against the plain version on the same inputs (multiclass): returns
+    (K error, scores error, scores tolerance, rows whose labels the
+    comparison skips as near-ties) and fails past SERVE_K_TOL."""
+    k_plain = ref.rbf_matrix_rows(x, bank, gamma)
+    k_err = (rbf_kernel.rbf_matrix_cuda(x, bank, gamma, path="tiled") - k_plain).abs().max().item()
+    scores, labels = ref.class_scores_labels(k_plain, alpha)
+    err = (got[0] - scores).abs().max().item()
+    tol = SERVE_K_TOL * max(1.0, ref.class_scores_labels(k_plain.abs(), alpha.abs())[0]
+                            .max().item())
+    top = scores.topk(2, dim=0).values if scores.shape[0] > 1 else None
+    clear = (top[0] - top[1] > 2 * tol) if top is not None else torch.ones_like(labels, dtype=bool)
+    check(k_err <= SERVE_K_TOL, f"rbf_tiled {tuple(x.shape)} against rbf_matrix_rows: {k_err}")
+    check(err <= tol, f"serve cell {tuple(x.shape)} scores against the plain version: {err} "
+          f"(tol {tol})")
+    check(bool((got[1] == labels)[clear].all()),
+          f"serve cell {tuple(x.shape)} labels differ from the plain version's off near-ties")
+    return k_err, err, tol, int((~clear).sum())
+
+
+def _serve_kernel_cases(ref, cs_kernel, rbf_kernel, gen):
+    """The one-launch serve cell against today's cell (rbf_tiled's K and the
+    plain contraction), bit for bit at each row count of SERVE_CASE_ROWS (one
+    for each of the kernel's row tiles), on inputs built to meet its edge
+    cases: a ragged C = 3, s = 37 with an exact tie; a binary
+    C = 1 model whose scores are exactly 0; rows holding a NaN, an Inf and a
+    -Inf, multiclass and binary; C = 40, s = 1,008, d = 5 (16-block
+    clusters, features not a multiple of 4); bf16 rows and bank; a bf16 bank
+    at d = 30 (no 8-byte copies)."""
     dev = torch.device("cuda")
-    k = torch.rand(40, 3 * 37, generator=gen).to(dev)
-    alpha = torch.randn(3, 37, generator=gen).to(dev)
-    alpha[2] = alpha[0]                                   # classes 0 and 2 tie exactly
-    k[:, 74:] = k[:, :37]
-    kb = torch.rand(9, 50, generator=gen).to(dev)
-    kb[3] = 0.0                                           # row 3 scores exactly 0
-    ab = torch.randn(1, 50, generator=gen).to(dev)
-    out = []
-    for label, kk, aa, binary in (("ragged C=3 s=37 with a tie", k, alpha, False),
-                                  ("binary C=1 with a zero score", kb, ab, True)):
-        got = class_scores_cuda(kk, aa, binary=binary)
-        want = ref.class_scores_labels(kk, aa, binary=binary)
-        equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
-        out.append(equal)
-        print(f"class_scores {label}: bit-equal to the plain version {equal}; labels "
+    r = lambda *shape: torch.randn(*shape, generator=gen).to(dev)
+    b3, a3 = r(3 * 37, 50), r(3, 37)
+    b3[74:], a3[2] = b3[:37], a3[0]                       # classes 0 and 2 tie exactly
+    bz, az = r(64, 20), r(1, 64)
+    bz[32:], az[0, 32:] = bz[:32], -az[0, :32]            # slots j and j + 32 cancel
+    rows = SERVE_CASE_ROWS[-1]
+    xn = r(rows, MC_DIM)
+    xn[1, 3], xn[2, 4], xn[3, 5] = float("nan"), float("inf"), -float("inf")
+    cases = [("ragged C=3 s=37 d=50 with a tie", r(rows, 50), b3, a3, 0.05, False),
+             ("binary C=1 with zero scores", r(rows, 20), bz, az, 0.1, True),
+             ("NaN/Inf rows, C=10 s=508", xn, r(MC_CLASSES * 508, MC_DIM), r(MC_CLASSES, 508),
+              MC_GAMMA, False),
+             ("NaN/Inf rows, binary s=501 d=123", xn[:, :123].contiguous(), r(501, 123),
+              r(1, 501), 2.0 ** -7, True),
+             ("C=40 s=1008 d=5", r(rows, 5), r(40 * 1008, 5), r(40, 1008), 0.5, False),
+             ("bf16 rows and bank, C=10 s=508", r(rows, MC_DIM).bfloat16(),
+              r(MC_CLASSES * 508, MC_DIM).bfloat16(), r(MC_CLASSES, 508), MC_GAMMA, False),
+             ("bf16 bank d=30 (copied through registers)", r(rows, 30),
+              r(MC_CLASSES * 37, 30).bfloat16(), r(MC_CLASSES, 37), 0.1, False)]
+    for label, x, bank, alpha, gamma, binary in cases:
+        equal = {n: _bit_equal(cs_kernel.serve_cell_cuda(x[:n], bank, alpha, gamma,
+                                                         binary=binary),
+                               _serve_cell_want(ref, rbf_kernel, x[:n], bank, alpha, gamma,
+                                                binary))
+                 for n in SERVE_CASE_ROWS}
+        got = cs_kernel.serve_cell_cuda(x, bank, alpha, gamma, binary=binary)
+        print(f"class_scores {label}: bit-equal to rbf_tiled + the plain contraction at "
+              f"{list(SERVE_CASE_ROWS)} rows (the rule's four row tiles) {equal}; labels "
               f"{got[1][:6].tolist()}")
-        check(equal, f"class_scores {label} against its plain version")
-        if binary:
-            check(float(got[1][3]) == 0.0 and float(got[0][0, 3]) == 0.0,
-                  "class_scores: the zero score's sign is not 0")
-        else:
+        check(all(equal.values()), f"class_scores {label} against today's cell: {equal}")
+        if binary and "zero" in label:
+            check(bool((got[1] == 0).all()) and bool((got[0] == 0).all()),
+                  "class_scores: a zero score's sign is not 0")
+        if "tie" in label:
             check(not bool((got[1] == 2).any()), "class_scores: a tie went to the higher class")
-    return all(out)
+        if "NaN" in label:
+            check(bool(got[0][:, 1].isnan().all()), "class_scores: a NaN row scored a number")
 
 
 def phase_serve(core, ops, ref, mc, data, run_c):
     """Serving at the full MNIST width from run (c)'s state, exported fp32 and
-    bf16: row independence bit for bit, class_scores against its plain
-    version, the two queues over a ragged trace of the test rows (the launch
-    counters set to 0 just before and read just after), no kernel build or
-    new reserved memory after the warm-up, a checkpoint round trip, and the
-    kernels' device time beside their bounds.  Returns the class_scores
-    record and the serve runs' launch counts."""
+    bf16: row independence bit for bit, the one-launch cell against today's
+    cell (rbf_tiled's K contracted by the plain version), the two queues
+    over a ragged trace of the test rows (the launch counters set to 0 just
+    before and read just after: one class_scores launch a microbatch, no
+    rbf_matrix), no kernel build or new reserved memory after the warm-up,
+    a checkpoint round trip, and the kernel's device time beside its bound.
+    Returns the class_scores record and the serve runs' launch counts."""
     import tempfile
     from repro_torch import checkpoint
     from repro_torch.kernels import _build, class_scores as cs_kernel, rbf_kernel
@@ -2053,74 +2133,80 @@ def phase_serve(core, ops, ref, mc, data, run_c):
     buckets = core.default_buckets(SERVE_MAX_BATCH)
     sizes = core.ragged_trace_sizes(MC_TEST, SERVE_MAX_BATCH, np.random.default_rng(SEED))
 
-    # a row's scores: one direct call, every bucket, and the ragged trace's
-    # requests each padded to its bucket as the queue pads
+    # a row's scores: one direct call, held to today's cell (rbf_tiled's K
+    # and the plain contraction) bit for bit; then every bucket and the
+    # ragged trace's requests, each padded to its bucket as the queue pads
     for name, model in models.items():
-        direct = core.serve_scores(model, xt)
+        direct = ops.serve_cell(xt, model.sv_x, model.alpha, model.gamma)
+        want = _serve_cell_want(ref, rbf_kernel, xt, model.sv_x.reshape(-1, MC_DIM),
+                                model.alpha, MC_GAMMA)
+        today = _bit_equal(direct, want)
+        k_err, err, tol, ties = _serve_cell_plain(ref, rbf_kernel, direct, xt,
+                                                  model.sv_x.reshape(-1, MC_DIM), model.alpha,
+                                                  MC_GAMMA)
         equal = {}
         for b in buckets + ("ragged",):
-            got = torch.empty_like(direct)
+            got = torch.empty_like(direct[0])
             spans = ([(o, min(b, MC_TEST - o)) for o in range(0, MC_TEST, b)] if b != "ragged"
                      else list(zip(np.cumsum([0] + sizes[:-1]).tolist(), sizes)))
             for off, n in spans:
                 rows = torch.zeros(core.pad_bucket(n, buckets), MC_DIM, device=dev)
                 rows[:n] = xt[off:off + n]
                 got[:, off:off + n] = core.serve_scores(model, rows)[:, :n]
-            equal[b] = bool(torch.equal(got, direct))
-        print(f"serve scores {name} bank: bit-equal to the direct call over {MC_TEST} rows at "
-              f"every bucket and ragged offsets {equal}")
+            equal[b] = bool(torch.equal(got, direct[0]))
+        print(f"serve scores {name} bank: {MC_TEST} rows in one call bit-equal to rbf_tiled + "
+              f"the plain contraction (scores and labels) {today}; bit-equal to the direct call "
+              f"at every bucket and ragged offsets {equal}; against the plain version "
+              f"(rbf_matrix_rows + class_scores_labels) scores max_abs_err {err:.3e} (tol "
+              f"{tol:.3e}), labels equal off {ties} near-tie rows, rbf_tiled's K err "
+              f"{k_err:.3e} (tol {SERVE_K_TOL:.0e})")
+        check(today, f"serve cell ({name}) differs from rbf_tiled + the plain contraction")
         check(all(equal.values()), f"serve scores ({name}) depend on the batch: {equal}")
+    _serve_kernel_cases(ref, cs_kernel, rbf_kernel, gen)
 
-    # class_scores against its plain version, given the same K
-    model = models["fp32"]
-    bank = model.sv_x.reshape(-1, MC_DIM)
-    k = rbf_kernel.rbf_matrix_cuda(xt[:SERVE_MAX_BATCH], bank, MC_GAMMA, path="tiled")
-    got = cs_kernel.class_scores_cuda(k, model.alpha)
-    want = ref.class_scores_labels(k, model.alpha)
-    err = (got[0] - want[0]).abs().max().item()
-    main_equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
-    print(f"class_scores {SERVE_MAX_BATCH}x({MC_CLASSES}, {MC_BUDGET + MC_BATCH}): bit-equal to "
-          f"the plain version {main_equal} (max_abs_err {err:.3e}, tol 0)")
-    check(main_equal, "class_scores at the serve shape against its plain version")
-    _serve_kernel_cases(ref, cs_kernel.class_scores_cuda, gen)
-
-    # device time beside the bound
-    m = bank.shape[0]
+    # device time beside the bound, the plain version and the contraction's einsum
+    c, s = models["fp32"].alpha.shape
+    record = None
     for n in SERVE_TIMED_ROWS:
-        for name in ("fp32", "bf16"):
-            y = models[name].sv_x.reshape(-1, MC_DIM)
-            x = xt[:n]
-            call = lambda: rbf_kernel.rbf_matrix_cuda(x, y, MC_GAMMA, path="tiled")
-            e = (call() - ref.rbf_matrix_rows(x, y, MC_GAMMA)).abs().max().item()
-            check(e <= 1e-5, f"rbf_tiled {n} rows {name} error {e}")
-            k_ms = time_call(call)
-            p_ms = time_call(lambda: ref.rbf_matrix_rows(x, y, MC_GAMMA), calls=2, repeats=3)
-            b_ms, b_by = bound_ms(*_rbf_work(n, m, MC_DIM, 4, y.element_size()))
-            print(f"serve rbf_tiled {n}x{m}x{MC_DIM} {name} bank: device "
-                  f"{us(device_ms(call, 'rbf_'))}, {k_ms * 1e3:.2f} us per call, plain "
-                  f"(rbf_matrix_rows) {p_ms * 1e3:.2f} us, bound {b_ms * 1e3:.4f} us ({b_by}), "
-                  f"err {e:.1e} (tol 1e-5); launches on the serve path: every microbatch")
-    c, s = model.alpha.shape
-    call = lambda: cs_kernel.class_scores_cuda(k, model.alpha)
-    kv = k.view(-1, c, s)
-    record = dict(max_abs_err=err, ms=time_call(call),
-                  plain_ms=time_call(lambda: ref.class_scores_labels(k, model.alpha)),
-                  library_ms=time_call(lambda: torch.einsum("ncs,cs->cn", kv, model.alpha)),
-                  device_ms=device_ms(call, "class_scores"))
-    record["bound_ms"], record["bound_by"] = bound_ms(*_class_scores_work(k.shape[0], c, s))
-    print(f"class_scores {k.shape[0]}x({c}, {s}): device {us(record['device_ms'])}, "
-          f"{record['ms'] * 1e3:.2f} us per call, plain {record['plain_ms'] * 1e3:.2f} us, "
-          f"library (einsum, scores only) {record['library_ms'] * 1e3:.2f} us, bound "
-          f"{record['bound_ms'] * 1e3:.4f} us ({record['bound_by']})")
+        for name, model in models.items():
+            bank, alpha, x = model.sv_x.reshape(-1, MC_DIM), model.alpha, xt[:n]
+            call = lambda: cs_kernel.serve_cell_cuda(x, bank, alpha, MC_GAMMA)
+            want = _serve_cell_want(ref, rbf_kernel, x, bank, alpha, MC_GAMMA)
+            got = call()
+            check(_bit_equal(got, want), f"class_scores {n} rows {name} against today's cell")
+            k_err, err, tol, ties = _serve_cell_plain(ref, rbf_kernel, got, x, bank, alpha,
+                                                      MC_GAMMA)
+            kv = rbf_kernel.rbf_matrix_cuda(x, bank, MC_GAMMA, path="tiled").view(n, c, s)
+            rec = dict(max_abs_err=err, ms=time_call(call),
+                       plain_ms=time_call(lambda: ref.class_scores_labels(
+                           ref.rbf_matrix_rows(x, bank, MC_GAMMA), alpha), calls=2, repeats=3),
+                       library_ms=time_call(lambda: torch.einsum("ncs,cs->cn", kv, alpha)),
+                       device_ms=device_ms(call, "class_scores"))
+            rec["bound_ms"], rec["bound_by"] = bound_ms(*_serve_cell_work(
+                n, c, s, MC_DIM, 4, bank.element_size()))
+            print(f"class_scores serve cell {n}x({c}, {s})x{MC_DIM} {name} bank: device "
+                  f"{us(rec['device_ms'])}, {rec['ms'] * 1e3:.2f} us per call, plain "
+                  f"(rbf_matrix_rows + class_scores_labels) {rec['plain_ms'] * 1e3:.2f} us, "
+                  f"library (einsum of the contraction alone) {rec['library_ms'] * 1e3:.2f} us, "
+                  f"bound {rec['bound_ms'] * 1e3:.4f} us ({rec['bound_by']}); bit-equal to "
+                  f"today's cell (rbf_tiled's K, the plain contraction); against the plain "
+                  f"version (rbf_matrix_rows + class_scores_labels): scores max_abs_err "
+                  f"{err:.3e} (tol {tol:.3e}), labels equal off {ties} near-tie rows, "
+                  f"rbf_tiled's K err {k_err:.3e} (tol {SERVE_K_TOL:.0e})")
+            if n == SERVE_MAX_BATCH and name == "fp32":
+                record = rec
 
     # the queues over the ragged trace: the serve path's runs
     ops.reset_launch_counts()
     torch.cuda.synchronize()
-    runs = {}
+    runs, cells = {}, 0
     for name, model in models.items():
         for queue in ("sync", "async"):
             stats = core.drive_trace(model, xte, sizes, max_batch=SERVE_MAX_BATCH, queue=queue)
             runs[(name, queue)] = stats
+            # the warm-up runs each bucket once (the async queue twice), the
+            # trace its microbatches, then one direct call checks the labels
+            cells += len(buckets) * (1 if queue == "sync" else 2) + stats["microbatches"] + 1
             print(f"serve {queue} queue, {name} bank: rows/s {stats['rows_per_s']} p50 "
                   f"{stats['p50_ms']} ms p99 {stats['p99_ms']} ms pad waste "
                   f"{stats['pad_waste_frac']} microbatches {stats['microbatches']} buckets "
@@ -2133,9 +2219,14 @@ def phase_serve(core, ops, ref, mc, data, run_c):
                   f"{stats['live_reserved_bytes']} bytes reserved after the warm-up")
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    print(f"serve runs' launches: {json.dumps(counts)}")
+    print(f"serve runs' launches: {json.dumps(counts)}; serve cells run {cells} (warm-ups, "
+          f"microbatches and direct calls): class_scores once a cell "
+          f"{counts['class_scores'] == cells}, rbf_matrix {counts['rbf_matrix']}")
+    check(counts["class_scores"] == cells and counts["rbf_matrix"] == 0
+          and sum(counts.values()) == cells, f"the serve runs launched {counts} for {cells} cells")
 
-    # where a microbatch's time goes: one full 256-row microbatch a step
+    # where a microbatch's time goes: one full 256-row microbatch a step; the
+    # launch counters over the same windows say what the profiler should see
     n_steps = MC_TEST // SERVE_MAX_BATCH
     for queue in ("sync", "async"):
         q = (core.BatchQueue if queue == "sync" else core.AsyncBatchQueue)(
@@ -2145,12 +2236,20 @@ def phase_serve(core, ops, ref, mc, data, run_c):
         def step(i, q=q):
             q.take(q.submit(xte[i * SERVE_MAX_BATCH:(i + 1) * SERVE_MAX_BATCH]))
 
-        _profile(step, n_steps, f"serve {queue} queue, fp32 bank, one {SERVE_MAX_BATCH}-row "
-                 "microbatch a step")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        seen = _profile(step, n_steps, f"serve {queue} queue, fp32 bank, one "
+                        f"{SERVE_MAX_BATCH}-row microbatch a step")
+        launched = ops.launch_counts()["class_scores"] / (n_steps * seen["windows"])
+        profiled = sum(c for _, c, key in seen["rows"] if "class_scores" in key) / n_steps
+        others = {key[:40]: round(c / n_steps, 2) for _, c, key in seen["rows"]
+                  if "class_scores" not in key}
+        print(f"serve {queue} queue profile: class_scores a microbatch by the launch counters "
+              f"{launched:.2f}, in the profiler's window {profiled:.2f}; the window's other "
+              f"device rows a microbatch {json.dumps(others)}")
+        check(launched == 1.0, f"serve {queue} profile: class_scores {launched} a microbatch")
         if queue == "async":
             q.close()
-    check(counts["class_scores"] > 0 and counts["rbf_matrix"] > 0,
-          "the serve runs did not launch class_scores and rbf_matrix")
 
     labels = {name: core.predict_labels(m, xte).cpu().numpy() for name, m in models.items()}
     train_side = mc.predict_multiclass(st, xte, MC_GAMMA).cpu().numpy()
@@ -3189,7 +3288,9 @@ def main() -> int:
                                "src/repro/kernels/merge_event.py:193"),
         "train_step": ("src/repro_torch/csrc/train_step.cu",
                        "src/repro/kernels/train_step.py:370"),
-        "class_scores": ("src/repro_torch/csrc/class_scores.cu", "src/repro/kernels/ops.py:103"),
+        "class_scores": ("src/repro_torch/csrc/class_scores.cu",
+                         "src/repro/kernels/ops.py:103 and, on the serve path, "
+                         "src/repro/kernels/rbf_kernel.py:57"),
         "bdca_ascent": ("src/repro_torch/csrc/bdca_ascent.cu", "src/repro/core/bdca.py:124"),
     }
     kernels = [dict(name=name, route="cuda", source=src_path, replaces=replaces,

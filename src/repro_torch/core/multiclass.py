@@ -17,8 +17,9 @@ a leading ``(C,)`` axis, and train in lockstep:
     rounds) is one ``train_step`` launch for all classes.
 
 Prediction is the argmax over the C decision functions, scored by the serve
-cell (``kernels.ops.class_scores``: one kernel block, then one contraction
-launch), the route ``core.predict`` serves through.  ``fit_multiclass_loop`` trains
+cell (``kernels.ops.class_scores``: on the card one launch computes the
+kernel block, the contraction and the label), the route ``core.predict``
+serves through.  ``fit_multiclass_loop`` trains
 the classes one after the other: the baseline the batched engine is measured
 against.  ``train_chunk_multiclass``, ``train_epoch_multiclass_stream`` and
 ``fit_multiclass_stream`` stream the class axis over a chunk source through

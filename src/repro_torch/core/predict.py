@@ -11,9 +11,9 @@ inference half of that bargain:
     ±1 signs instead of argmax ids).  Training updates its state in place,
     so the export copies every tensor: a served model never changes under
     its readers.
-  * ``predict_labels`` — the serve cell (``kernels.ops.serve_cell``): one
-    kernel block against the flattened (C * slots, dim) bank, then the fp32
-    contraction and the label in one more launch.  Every sum has one order
+  * ``predict_labels`` — the serve cell (``kernels.ops.serve_cell``): the
+    kernel block against the flattened (C * slots, dim) bank, the fp32
+    contraction and the label, in one launch on the card.  Every sum has one order
     whatever the row count, so a row's scores depend only on that row and
     the bank.
   * ``BatchQueue`` / ``AsyncBatchQueue`` — microbatch assembly for a

@@ -28,9 +28,10 @@
 //     output's three sums are the per-lane fmaf chains and the butterfly of
 //     one warp over the features, the order train_step.cu's margin rows
 //     share.
-//   * rbf_tiled, many rows (decision values, class scores, the cache's
-//     initial block): 6,512 x 501 x 123 is 803 MFLOP (12 us at 67 TFLOP/s)
-//     on 4 MB, so operations bound it.  A block computes a 64 x 64 tile
+//   * rbf_tiled, many rows (decision values, the cache's initial block; the
+//     serve cell, class_scores.cu, sums each output in its order): 6,512 x
+//     501 x 123 is 803 MFLOP (12 us at 67 TFLOP/s) on 4 MB, so operations
+//     bound it.  A block computes a 64 x 64 tile
 //     with 256 threads (32 x 64 with 128 threads for 32 rows or fewer, for
 //     more blocks) and a 4 x 4 register micro-tile a thread; the operands
 //     are staged through shared memory BK features at a time, k-major,

@@ -32,7 +32,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                  "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # Kernels whose float comparisons must round exactly as the plain PyTorch
-# versions do: no multiply-add contraction.
+# versions do: no multiply-add contraction.  class_scores.cu computes K as
+# rbf_kernel.cu does, under the same flags (its sums are explicit fmaf, its
+# contraction explicit __fmul_rn / __fadd_rn, which no flag contracts).
 SOURCES = {
     "rbf_kernel": (),
     "merge_lookup": ("-fmad=false",),
@@ -40,7 +42,7 @@ SOURCES = {
     "merge_multi": ("-fmad=false",),
     "merge_event": ("-fmad=false",),
     "train_step": ("-fmad=false",),
-    "class_scores": ("-fmad=false",),
+    "class_scores": (),
     "bdca_ascent": ("-fmad=false",),
 }
 

@@ -108,15 +108,14 @@ def serve_cell(x, sv_x, alpha, gamma, *, binary: bool = False, impl: str = "auto
     fp32.  scores (C, n); labels (n,) int32 argmax ids, or the fp32 signs of
     a binary model's one score (``binary``, C = 1).  Every sum has one order
     whatever n, so a row's scores and label are the same bits in a batch of
-    any size: on the card ``rbf_tiled`` (``path="tiled"`` for every n; one
-    thread sums each output in feature order) then one ``class_scores``
-    launch; on the CPU ``ref.rbf_matrix_rows`` then
-    ``ref.class_scores_labels``."""
+    any size: on the card one ``class_scores`` launch (the kernel block,
+    the contraction and the label, K kept in shared memory); on the CPU
+    ``ref.rbf_matrix_rows`` then ``ref.class_scores_labels``."""
     c, slots, d = sv_x.shape
     bank = sv_x.reshape(c * slots, d)
     if _use_kernel(impl, x):
-        k = rbf_kernel.rbf_matrix_cuda(x, bank, gamma, path="tiled")
-        return class_scores_kernel.class_scores_cuda(k, alpha.float(), binary=binary)
+        return class_scores_kernel.serve_cell_cuda(x, bank, alpha.float(), gamma,
+                                                   binary=binary)
     return ref.class_scores_labels(ref.rbf_matrix_rows(x, bank, gamma), alpha, binary=binary)
 
 

@@ -269,8 +269,8 @@ def rbf_matrix_rows(x, y, gamma):
 
 
 def class_scores_labels(k, alpha, *, binary: bool = False):
-    """The serve cell's contraction and label (the plain version of
-    ``csrc/class_scores.cu``): ``(scores, labels)``.
+    """The serve cell's contraction and label (after ``rbf_matrix_rows``, the
+    plain version of ``csrc/class_scores.cu``): ``(scores, labels)``.
 
     k: (n, C * s) fp32 kernel block; alpha: (C, s) fp32.  scores[c, i] sums
     k[i, c s + j] * alpha[c, j] as the kernel does: lane l of 32 adds the

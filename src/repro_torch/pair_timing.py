@@ -2,7 +2,8 @@
 
     python3 src/repro_torch/pair_timing.py --tree build/parent/src --tree src \
         [--pairs 10] [--steps 1000] [--class-steps 50] [--fused-steps 500] \
-        [--calls 2000] [--kernels-only] [--out pair_timing.json]
+        [--calls 2000] [--kernels-only | --serve [--serve-calls 500]] \
+        [--out pair_timing.json]
 
 Each ``--tree`` is a ``src`` directory holding a ``repro_torch`` package (for
 example the parent commit unpacked beside the working tree).  One worker
@@ -49,11 +50,21 @@ state, so that every step keeps its shape) at the budget, where each step that i
 and with every count lowered by one batch, so that no round runs (the
 margin rows and the insert alone).
 
+``--serve`` compares the trees' serve cell (``kernels.ops.serve_cell``)
+alone: no training.  On one model from a seed at ``chip_smoke.py``'s serve
+shape (C = 10, s = 508, d = 780, 500 active slots a class) with an fp32 and
+a bf16 bank, each worker reports, once both are ready and one at a time,
+the SHA-256 of the scores and of the labels at ``SERVE_ROWS`` rows and the
+device µs of the whole cell a call (every kernel it launches, from
+``torch.profiler``); then the workers take turns, A B B A, each running
+``--serve-calls`` back-to-back cells of each shape, timed on the host clock
+(µs a call).
+
 Prints each run and, per configuration, each tree's median, quartiles, mean
 and range, the same of the paired differences (second tree minus first) and
 in how many pairs the second tree was slower; ``--out`` also writes them as
-JSON.  Exits 1 if the two trees' decisions, rbf_matrix bits or
-bdca_ascent bits differ anywhere.
+JSON.  Exits 1 if the two trees' decisions, rbf_matrix bits,
+bdca_ascent bits or serve cell bits differ anywhere.
 """
 from __future__ import annotations
 
@@ -88,12 +99,17 @@ RBF_SHAPES = [(1, 501, 123), (8, 5_080, 780), (32, 5_080, 780), (6_512, 501, 123
 BDCA_SHAPES = [(1, 501, [501]), (10, 508, [500 + q % 9 for q in range(10)])]
 BDCA_ROUNDS = (0, 1, 2)
 BDCA_BOX = 3.8389
+# --serve: the serve cell's row counts (a small, a middle and a full
+# microbatch of chip_smoke.py's queues) and banks
+SERVE_ROWS = (8, 64, 256)
+SERVE_BANKS = ("fp32", "bf16")
+SERVE_SLOTS, SERVE_ACTIVE, SERVE_GAMMA = BUDGET + MC_BATCH, BUDGET, 2.0 ** -11
 
 
-def worker(tree: str, kernels_only: bool) -> None:
+def worker(tree: str, kernels_only: bool, serve: bool = False) -> None:
     """Serve ``run <method> <steps>`` and ``op <name> <calls>`` requests on
     stdin, one JSON line each (with ``kernels_only``, only the kernel
-    checks)."""
+    checks; with ``serve``, only ``serve`` and ``serve <n> <bank> <calls>``)."""
     sys.path.insert(0, str(Path(tree).resolve()))
     import numpy as np
     import torch
@@ -103,6 +119,9 @@ def worker(tree: str, kernels_only: bool) -> None:
 
     _build.build()
     dev = torch.device("cuda")
+    if serve:
+        _serve_worker(tree, dev)
+        return
     checks = {"rbf": _rbf_checks, "bdca": _bdca_checks}
     if kernels_only:
         print(json.dumps({"ready": tree, "decisions": {}}), flush=True)
@@ -260,6 +279,70 @@ def _bdca_checks(dev) -> dict:
     return out
 
 
+def _serve_worker(tree: str, dev) -> None:
+    """``--serve``'s worker: the cell's bits and device time (``serve``), and
+    ``serve <n> <bank> <calls>``: µs a call on the host clock."""
+    import torch
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator().manual_seed(21)
+    sv_x = torch.randn(MC_CLASSES, SERVE_SLOTS, MC_DIM, generator=gen)
+    alpha = torch.randn(MC_CLASSES, SERVE_SLOTS, generator=gen) * 0.3
+    alpha[:, SERVE_ACTIVE:] = 0.0                  # export_model zeroes the inactive slots
+    banks = {"fp32": sv_x.to(dev), "bf16": sv_x.to(dev, torch.bfloat16)}
+    alpha = alpha.to(dev)
+    x = torch.randn(max(SERVE_ROWS), MC_DIM, generator=gen).to(dev)
+    cell = lambda n, bank: ops.serve_cell(x[:n], banks[bank], alpha, SERVE_GAMMA, impl="cuda")
+    for n in SERVE_ROWS:                           # warm: builds, allocations, tickets
+        for bank in SERVE_BANKS:
+            cell(n, bank)
+    torch.cuda.synchronize()
+    print(json.dumps({"ready": tree, "decisions": {}}), flush=True)
+    for line in sys.stdin:
+        words = line.split()
+        if words == ["serve"]:
+            print(json.dumps(_serve_checks(cell)), flush=True)
+            continue
+        n, bank, calls = int(words[1]), words[2], int(words[3])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            cell(n, bank)
+        torch.cuda.synchronize()
+        print(json.dumps({"us_per_step": (time.perf_counter() - t0) / calls * 1e6}), flush=True)
+
+
+def _serve_checks(cell) -> dict:
+    """``{"n rows bank": {"scores_sha256", "labels_sha256", "device_us"}}`` of
+    the serve cell at each of ``SERVE_ROWS`` and ``SERVE_BANKS``; device µs a
+    call: every kernel of 50 calls from ``torch.profiler`` (None if it
+    reports none)."""
+    import hashlib
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for n in SERVE_ROWS:
+        for bank in SERVE_BANKS:
+            scores, labels = cell(n, bank)
+            sha = {f"{k}_sha256": hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
+                   for k, v in (("scores", scores), ("labels", labels))}
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(50):
+                    cell(n, bank)
+                torch.cuda.synchronize()
+            busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+                       if ev.device_type == DeviceType.CUDA)
+            kernels = sorted({ev.key[:60] for ev in prof.key_averages()
+                              if ev.device_type == DeviceType.CUDA})
+            out[f"{n} rows {bank}"] = dict(**sha, device_us=busy / 50 if busy > 0 else None,
+                                           kernels=kernels)
+    return out
+
+
 def _decisions(st) -> dict:
     """A state's integer decisions: count, n_inserts and n_merges."""
     return {f: getattr(st, f).tolist() for f in ("count", "n_inserts", "n_merges")}
@@ -360,20 +443,27 @@ def main() -> int:
     ap.add_argument("--calls", type=int, default=2_000)
     ap.add_argument("--kernels-only", action="store_true",
                     help="only the rbf_matrix and bdca_ascent checks: no training, no pairs")
+    ap.add_argument("--serve", action="store_true",
+                    help="only the serve cell: its bits, device time and µs a call in pairs")
+    ap.add_argument("--serve-calls", type=int, default=500)
     ap.add_argument("--out", default=None)
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker(args.worker, args.kernels_only)
+        worker(args.worker, args.kernels_only, args.serve)
         return 0
     if len(args.tree) != 2:
         ap.error("give exactly two --tree")
-    extra = ["--kernels-only"] if args.kernels_only else []
+    if args.serve and args.kernels_only:
+        ap.error("--serve and --kernels-only are two different runs")
+    extra = ["--kernels-only"] if args.kernels_only else ["--serve"] if args.serve else []
     procs = [subprocess.Popen([sys.executable, __file__, "--tree", t, "--worker", t, *extra],
                               stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
              for t in args.tree]
     checks = [("rbf", "rbf_matrix"), ("bdca", "bdca_ascent")]
-    if not args.kernels_only:
+    if args.serve:
+        checks = [("serve", "serve_cell")]
+    elif not args.kernels_only:
         checks.append(("split", "split_device_us"))
     same = {}
     try:
@@ -390,25 +480,32 @@ def main() -> int:
             if "split_device_us" in r:
                 print(f"worker {r['ready']}: fused-step device us a launch "
                       f"{json.dumps(r['split_device_us'])}", flush=True)
-        for kernel in ("rbf_matrix", "bdca_ascent"):
+        for _, kernel in checks:
+            if kernel == "split_device_us":
+                continue
             for shape, first in ready[0][kernel].items():
                 second = ready[1][kernel][shape]
                 key = f"{kernel} {shape} bits"
-                same[key] = first["sha256"] == second["sha256"]
+                same[key] = all(first[h] == second[h] for h in first if h.endswith("sha256"))
                 print(f"{kernel} {shape}: device us a launch {first['device_us']} (first tree) "
-                      f"{second['device_us']} (second); bit-equal {same[key]}", flush=True)
-        kinds = {} if args.kernels_only else {
-            **{m: args.steps for m in BINARY},
-            **{r: args.class_steps if r == "multi-merge (b)" else args.fused_steps
-               for r in CLASS_RUNS},
-            **{o: args.calls for o in OPS}}
+                      f"{second['device_us']} (second); bit-equal {same[key]}"
+                      + (f"; kernels {first['kernels']} / {second['kernels']}"
+                         if "kernels" in first else ""), flush=True)
+        if args.serve:
+            kinds = {f"serve {n} {b}": args.serve_calls for n in SERVE_ROWS for b in SERVE_BANKS}
+        else:
+            kinds = {} if args.kernels_only else {
+                **{m: args.steps for m in BINARY},
+                **{r: args.class_steps if r == "multi-merge (b)" else args.fused_steps
+                   for r in CLASS_RUNS},
+                **{o: args.calls for o in OPS}}
         runs = {m: {t: [] for t in args.tree} for m in kinds}
         for k in range(args.pairs):
             order = (0, 1) if k % 2 == 0 else (1, 0)          # A B, B A, A B, ...
             for method, n in kinds.items():
                 ends = []
                 for w in order:
-                    procs[w].stdin.write(f"{method} {n}\n" if method in OPS
+                    procs[w].stdin.write(f"{method} {n}\n" if method in OPS or args.serve
                                          else f"run {method} {n}\n")
                     procs[w].stdin.flush()
                     res = json.loads(_reply(procs[w]))
@@ -433,8 +530,8 @@ def main() -> int:
         print(f"{method}: {json.dumps({t: report[method]['summary'][t] for t in args.tree})}")
         print(f"{method}: second minus first, per pair: {json.dumps(_summary(diffs))}; "
               f"second slower in {report[method]['second_slower_in']} of {len(diffs)} pairs")
-    print(f"decisions (count, n_inserts, n_merges), rbf_matrix and bdca_ascent bits equal "
-          f"between the trees: {json.dumps(same)}")
+    print(f"decisions (count, n_inserts, n_merges), rbf_matrix, bdca_ascent and serve cell "
+          f"bits equal between the trees: {json.dumps(same)}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
