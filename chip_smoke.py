@@ -49,7 +49,7 @@ non-zero exit code:
      launch a maintenance round, 8 a step, and no ``multi_merge_scores``);
      a ``CUT:`` line says how many steps each run trains.  Every launch
      counter is 0 before each run and read after it;
-  9. the first 1,000 steps of run (a) on the card and on the CPU in lockstep,
+  9. the first 500 steps of run (a) on the card and on the CPU in lockstep,
      integer state compared step by step (where it first differs, the cause
      must be a near-tie: a margin on either side of 1, or tied event
      scores), then the cache invariants I1-I3 of both;
@@ -73,7 +73,7 @@ non-zero exit code:
      compared step by step (where they first differ, the cause must be a
      near-tie), then the cache invariants of both;
  13. a profiled window of runs (c) and (d) and of the binary fused run;
- 14. 300 more steps of run (b)'s configuration from where run (b) stopped,
+ 14. 150 more steps of run (b)'s configuration from where run (b) stopped,
      on the card, with every maintenance round run twice from the same state,
      through the ``multi_merge_choose`` kernel and through the plain scoring
      and choice (``impl="ref"``): count, sv_x, alpha and kmat equal bit for
@@ -115,7 +115,7 @@ non-zero exit code:
      exactly where the plain version (``impl="ref"``) rolls it back, with
      the guard's cost a chunk; (d) the binary
      paper path (``lookup-wd``, batch 1, no cache) streamed over the ADULT
-     stand-in in 2,048-row chunks (a ``CUT:`` line: 4 chunks) bit-equal to
+     stand-in in 2,048-row chunks (a ``CUT:`` line: 2 chunks) bit-equal to
      ``train_epoch``, the binary fused epoch streamed whole bit-equal to its
      in-memory twin, and ``LibsvmChunks`` bit-equal to ``ArrayChunks`` of the
      same rows; (e) ``prequential_stream`` on the ADULT stand-in with a label
@@ -138,20 +138,45 @@ non-zero exit code:
      sweep's ns a coordinate, the chain warp alone (clock64 cycles a
      coordinate) and the chain floor (the dependent instructions of a link
      read from the kernel's SASS, their latencies measured on the card);
-     (b) one bdca epoch of phase 4's ADULT stand-in (the cache,
+     (b) half a bdca epoch of phase 4's ADULT stand-in (a ``CUT:`` line; the cache,
      ``bdca_C = box_from_lambda(n, 1e-5)``, 2 rounds; ``bdca_ascent`` once a
      step, its gap to the binary fused bsgd run); (c) run (a)'s class axis
      under bdca for one epoch (``bdca_C`` from the 60,000 rows; its gap to
      run (a)); each held to an accuracy floor above chance
      (``BDCA_ACC_FLOOR``: BDCA stays below the bsgd runs' 0.80 here, in the
      reference too); profiled windows of both;
-     (d) the first 1,000 steps of (b) on the card and on the CPU in
+     (d) the first 600 steps of (b) on the card and on the CPU in
      lockstep, integer state and SV rows compared every step (where they
      part, the cause must be a near-tie: a margin at 1, a coordinate
      clipped at 0, tied event scores), then the cache invariants; (e) two
      chunks of (c)'s rows through ``fit_multiclass_stream``, eager and from
      CUDA graphs, bit-equal with equal launches (a ``CUT:`` line).  Every
-     launch counter is 0 before each bdca run and read after it.
+     launch counter is 0 before each bdca run and read after it;
+ 18. the distributed layer (``core.distributed``), two ranks sharing the card
+     (a ``torch.multiprocessing`` spawn; gloo, since NCCL refuses two ranks
+     on one device; the kernels built in phase 2 and only loaded there),
+     each run against the same steps in one process on the card: the
+     ``replicated`` and ``slots`` layouts on phase 4's ADULT stand-in at
+     batch 8 (508 slots, 254 a rank), the ``class`` layout at the
+     mnist-width stand-in (5 classes a rank) under run (a)'s engine
+     (``merge_event_rounds``) and run (c)'s fused step (``train_step``), a
+     ``CUT:`` line each; run (c)'s fp32 model served over the 10,000 test
+     rows split over the ranks; and ``replicated`` once more on a world of 1
+     under NCCL.  Each prints its backend (the ranks go through
+     ``launch.dist.pick_backend``, and the phase fails unless they ran the
+     rule's pick) and that ``core.distributed`` stages nothing (gloo copies
+     CUDA tensors through host memory inside its collectives), µs a step on
+     the ranks and in one process, the first step whose integer state parts
+     (checked every 100 steps and at the end; a parting must be a diagnosed
+     near-tie), the largest float difference and whether the bits are equal
+     (every layout's state must be bit-equal while the integers agree;
+     serve: scores and labels bit-equal).  Every child's launches count in
+     the ``kernels`` line.
+     Before the runs, ``rbf_matrix`` over the class bank against its two
+     halves: a column's bits do not depend on the bank's width;
+ 19. the port's five examples (``examples/torch_*.py``) as subprocesses on
+     ``cuda`` (a ``CUT:`` line where the arguments cut the defaults), with
+     ``torch_svm_speedup.py``'s two paper figures on a line of their own.
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 It imports nothing from the JAX package.  Without a CUDA device, or without
@@ -169,6 +194,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -176,16 +202,17 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 N_ROWS, DIM, BUDGET = 32_561, 123, 500
 REPLAY_STEPS = 2_000
-PROFILE_STEPS = 300
+PROFILE_STEPS = 100               # cut from 300 for phases 18 and 19 (a CUT: line)
 # the class axis: LIBSVM multi-class mnist's widths and split
 MC_CLASSES, MC_DIM, MC_TRAIN, MC_TEST = 10, 780, 60_000, 10_000
 MC_GAMMA, MC_LAMBDA, MC_BUDGET, MC_BATCH = 2.0 ** -11, 1e-5, 500, 8
-MC_REPLAY_STEPS = 1_000
+MC_REPLAY_STEPS = 500            # cut from 1,000 for phases 18 and 19 (a CUT: line)
 # profiled steps per class-axis run: run (b) launches ~1,500 kernels a step,
 # which the profiler's bookkeeping makes slow to read back
 MC_PROFILE_STEPS = {"a": 40, "b": 8, "c": 200, "d": 200}
 # steps of each class-axis run; None is one whole epoch (MC_TRAIN // MC_BATCH).
-# Run (b) is cut to keep the script within ~800 s with phase 17: with one
+# Run (b) is cut to keep the script within ~800 s (at 750 steps its
+# accuracy stays below the 0.80 floor): with one
 # multi_merge_choose launch a round its whole epoch took 253 s of a ~580 s
 # script on one H100 (PERF.md); phase 14 goes on from where it stops
 MC_STEPS = {"a": None, "b": 1_500, "c": None, "d": None}
@@ -193,7 +220,7 @@ MC_RUNS = {"a": "merge_event engine", "b": "multi-merge", "c": "fused step, merg
            "d": "fused step, multi-merge"}
 LOCKSTEP_STEPS = 1_000
 FUSED_PROFILE_STEPS = 1_000
-CHOOSE_LOCKSTEP_STEPS = 300
+CHOOSE_LOCKSTEP_STEPS = 150      # cut from 300 for phases 18 and 19 (a CUT: line)
 # rbf_matrix's checked shapes (n, m, d): the binary path's margin and kappa
 # rows, decision values, run (a)'s margin rows (a minibatch of 8 against the
 # 10 x 508 class bank) and a minibatch of 32 against it, and three ragged
@@ -201,7 +228,7 @@ CHOOSE_LOCKSTEP_STEPS = 300
 RBF_SHAPES = [(1, 501, 123), (6512, 501, 123), (8, 5080, 780), (32, 5080, 780), (3, 77, 5),
               (12, 301, 50), (33, 17, 300)]
 # steps of phase 6's gss-precise window, from the gss epoch's state
-PRECISE_PROFILE_STEPS = 300
+PRECISE_PROFILE_STEPS = 100       # cut from 300 with PROFILE_STEPS
 
 
 def check(cond: bool, what: str) -> None:
@@ -1504,6 +1531,8 @@ def phase_class_replay(mc, kernel_cache, data):
     (xtr, ytr), _ = data
     cfg = _mc_config(mc, "a")
     order = _mc_order(MC_REPLAY_STEPS)
+    print(f"CUT: class replay runs the first {MC_REPLAY_STEPS} of run (a)'s steps (cut from "
+          "1,000)")
     devs = ("cuda", "cpu")
     tabs = {dev: cfg.table().to(dev) for dev in devs}
     st = {dev: mc.init_multiclass_state(cfg, MC_DIM, device=dev) for dev in devs}
@@ -1971,6 +2000,7 @@ def phase_choose_lockstep(mc, budget_mod, data, run_b):
     rows = torch.cat([_mc_order(MC_TRAIN // MC_BATCH),
                       torch.randperm(MC_TRAIN, generator=torch.Generator().manual_seed(SEED + 1))])
     order = rows[res["steps"] * MC_BATCH:(res["steps"] + CHOOSE_LOCKSTEP_STEPS) * MC_BATCH]
+    print(f"CUT: choose lockstep runs {CHOOSE_LOCKSTEP_STEPS} steps (cut from 300)")
     x, y = torch.as_tensor(xtr, device=dev), torch.as_tensor(ytr, device=dev)
     orig = budget_mod._multi_merge_once
     seen = {"rounds": 0, "events": 0, "differ": []}
@@ -2281,7 +2311,7 @@ def phase_serve(core, ops, ref, mc, data, run_c):
 
 STREAM_CHUNK_ROWS = 4_100              # = 512 * 8 + 4: rows carry across every boundary
 BINARY_CHUNK_ROWS = 2_048
-BINARY_MAX_CHUNKS = 4                  # leg (d)'s composed stream: 8,192 of 26,049 steps
+BINARY_MAX_CHUNKS = 2                  # leg (d)'s composed stream: 4,096 of 26,049 steps
 LIBSVM_ROWS = 4_096
 # leg (f): serve_svm_live at MNIST width over the whole 60,000 rows, one
 # snapshot a chunk, its trace of LIVE_ROWS rows submitted at once as the CLI
@@ -2708,7 +2738,11 @@ BDCA_PROFILE_STEPS = {"b": 300, "c": 40}
 # test_adult_standin_accuracy_equals_reference).  Each run prints its gap to
 # the bsgd run.
 BDCA_ACC_FLOOR = {"b": 0.60, "c": 0.50}
-BDCA_LOCKSTEP_STEPS = 1_000
+BDCA_LOCKSTEP_STEPS = 600        # cut from 1,000 for phases 18 and 19 (a CUT: line);
+                                 # its first merge event comes near step 500
+# (b)'s steps: cut from the whole epoch (26,049) for phases 18 and 19 (a CUT:
+# line); on the card its accuracy is 0.7024 there against 0.6594 at the end
+BDCA_BINARY_STEPS = 13_025
 BDCA_ROW_GAP = 0.1        # (d): SV rows further apart than this hold other points
 BDCA_STREAM_ROWS = 2 * STREAM_CHUNK_ROWS     # (e): two chunks of run (c)'s rows
 
@@ -2933,11 +2967,16 @@ def _bdca_binary_cfg(core, n_train: int):
 
 
 def phase_bdca_binary(core, ops, data, fused_acc: float, card):
-    """(b) one bdca epoch of the ADULT stand-in, the launch counters set to 0
-    just before it and read just after."""
+    """(b) BDCA_BINARY_STEPS bdca steps of the ADULT stand-in in ``fit``'s
+    order, the launch counters set to 0 just before and read just after."""
     (xtr, ytr), (xte, yte) = data
     cfg = _bdca_binary_cfg(core, xtr.shape[0])
-    st, secs, launches = _launched(ops, lambda: core.fit(cfg, xtr, ytr, epochs=1, seed=SEED))
+    print(f"CUT: bdca (b) trains {BDCA_BINARY_STEPS} of the epoch's {xtr.shape[0]} steps")
+    # fit's order (a torch.Generator seeded with SEED), cut
+    order = torch.randperm(xtr.shape[0], generator=torch.Generator().manual_seed(SEED))
+    st0 = core.init_state(cfg, xtr.shape[1])
+    st, secs, launches = _launched(ops, lambda: core.train_epoch(
+        cfg, cfg.table(), st0, xtr, ytr, order[:BDCA_BINARY_STEPS]))
     acc = float(core.accuracy(st, xte, yte, cfg.gamma))
     steps = int(st.step) - 1
     run = dict(count=int(st.count), n_inserts=int(st.n_inserts), n_merges=int(st.n_merges),
@@ -3094,6 +3133,7 @@ def phase_bdca_lockstep(core, ops, data, card):
     cfg = _bdca_binary_cfg(core, xtr.shape[0])
     order = torch.randperm(xtr.shape[0], generator=torch.Generator().manual_seed(SEED))
     order = order[:BDCA_LOCKSTEP_STEPS]
+    print(f"CUT: bdca (d) runs the first {BDCA_LOCKSTEP_STEPS} of (b)'s steps (cut from 1,000)")
     devs = {"cuda": torch.device("cuda"), "cpu": torch.device("cpu")}
     tabs = {k: cfg.table().to(dev) for k, dev in devs.items()}
     st = {k: core.init_state(cfg, DIM, device=dev) for k, dev in devs.items()}
@@ -3181,6 +3221,466 @@ def phase_bdca(core, mc, ops, ref, data, mc_data, fused_acc, run_a_acc, card):
     return record, counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the distributed layer, two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+DIST_WORLD = 2
+DIST_BATCH = 8                 # ADULT at batch 8: 508 slots, 254 a rank (batch 1 cannot split)
+DIST_CHECK = 100               # integer state compared every DIST_CHECK steps and at the end
+DIST_TIMEOUT_S = 300.0         # every collective of a child
+DIST_JOIN_S = 900.0            # the children of one spawn, start to end
+# steps of each distributed run (CUT lines say of how many)
+DIST_STEPS = {"replicated": 200, "slots": 200, "class (a)": 600, "class (c)": 600,
+              "nccl replicated": 200}
+
+
+def _dist_runs():
+    """The runs of phase 18: the ADULT stand-in's binary layouts, the mnist-width
+    class axis under run (a)'s and run (c)'s engines (``cfg`` the run), and
+    run (c)'s model served."""
+    binary = dict(budget=BUDGET, lambda_=1e-5, gamma=2.0 ** -7, batch_size=DIST_BATCH,
+                  method="lookup-wd")
+    return [dict(name="replicated", kind="binary", layout="replicated", cfg=binary),
+            dict(name="slots", kind="binary", layout="slots", cfg=binary),
+            dict(name="class (a)", kind="class", layout="class", cfg="a"),
+            dict(name="class (c)", kind="class", layout="class", cfg="c"),
+            dict(name="serve", kind="serve")]
+
+
+def _dist_config(core, mc, run):
+    if run["kind"] == "class":
+        return _mc_config(mc, run["cfg"])
+    return core.BSGDConfig(**run["cfg"])
+
+
+def _same_bits(a, b) -> bool:
+    """Two tensors of one dtype and shape equal bit for bit (NaN included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        return torch.equal(a.reshape(-1).view(torch.int16 if a.element_size() == 2 else torch.int32),
+                           b.reshape(-1).view(torch.int16 if b.element_size() == 2 else torch.int32))
+    return torch.equal(a, b)
+
+
+def _dist_ints(state):
+    """count, n_inserts and n_merges of a state as one int row (every class's)."""
+    return torch.cat([state.count.reshape(-1), state.n_inserts.reshape(-1),
+                      state.n_merges.reshape(-1)])
+
+
+def _file(tmp: Path, run: dict, what: str) -> Path:
+    return tmp / f"{run['name'].replace(' ', '_').replace('(', '').replace(')', '')}-{what}"
+
+
+def _dist_single(core, mc, ops, run, xs, ys):
+    """The run's steps in one process on the card: ``(trace, checks, final,
+    seconds, launches)``; ``trace`` (steps, k) integer state after each step,
+    ``checks`` {step: state} every DIST_CHECK steps (the state before step
+    0 included)."""
+    cfg = _dist_config(core, mc, run)
+    dev = torch.device("cuda")
+    table = cfg.table().to(dev)
+    steps = xs.shape[0] // DIST_BATCH
+    if run["kind"] == "class":
+        st, step_fn = mc.init_multiclass_state(cfg, xs.shape[1], device=dev), mc.train_step_multiclass
+    else:
+        st, step_fn = core.init_state(cfg, xs.shape[1], device=dev), core.train_step
+    trace = torch.zeros((steps, _dist_ints(st).shape[0]), dtype=torch.int32, device=dev)
+    checks = {0: st}
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        sl = slice(i * DIST_BATCH, (i + 1) * DIST_BATCH)
+        st = step_fn(cfg, table, st, xs[sl], ys[sl])
+        trace[i] = _dist_ints(st)
+        if (i + 1) % DIST_CHECK == 0 or i + 1 == steps:
+            trace[i].cpu()                 # the children read their trace here too
+            checks[i + 1] = st
+    torch.cuda.synchronize()
+    return trace.cpu().numpy(), checks, st, time.perf_counter() - t0, ops.launch_counts()
+
+
+def _dist_child_run(core, mc, D, ops, group, tmp, run, dev):
+    """One run on this rank: its part of the state through the layout's
+    steps, the integer state held against the one-process trace every
+    DIST_CHECK steps.  Where they part, the run stops, re-runs from the last
+    check to the state before the parting step and keeps it."""
+    rank, world = torch.distributed.get_rank(group), torch.distributed.get_world_size(group)
+    cfg = _dist_config(core, mc, run)
+    inputs = np.load(_file(tmp, run, "inputs.npz"))
+    want = np.load(_file(tmp, run, "trace.npy"))
+    xs = torch.as_tensor(inputs["x"], device=dev)
+    ys = torch.as_tensor(inputs["y"], device=dev)
+    if run["kind"] == "class":
+        full = mc.init_multiclass_state(cfg, xs.shape[1], device=dev)
+        lo, hi = D.owned_range(cfg.n_classes, rank, world) if (
+            D.resolve_layout(cfg, run["layout"], world) == "class") else (0, cfg.n_classes)
+        c = cfg.n_classes
+        cols = [k * c + q for k in range(3) for q in range(lo, hi)]
+    else:
+        full = core.init_state(cfg, xs.shape[1], device=dev)
+        cols = [0, 1, 2]
+    step = D.make_distributed_step(cfg, group, layout=run["layout"])
+    steps = xs.shape[0] // DIST_BATCH
+
+    def batch(i):
+        sl = slice(i * DIST_BATCH, (i + 1) * DIST_BATCH)
+        return D.shard_rows(xs[sl], group), D.shard_rows(ys[sl], group)
+
+    part = D.shard_state(cfg, full, group, run["layout"])
+    trace = torch.zeros((steps, len(cols)), dtype=torch.int32, device=dev)
+    check_at, check_part, parted = 0, part, None
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        part = step(part, *batch(i))
+        trace[i] = _dist_ints(part)
+        if (i + 1) % DIST_CHECK == 0 or i + 1 == steps:
+            got = trace[check_at:i + 1].cpu().numpy()
+            bad = np.nonzero((got != want[check_at:i + 1][:, cols]).any(axis=1))[0]
+            # a rank sees only its classes' counters: the first parting of any rank
+            first = torch.tensor([check_at + int(bad[0]) if bad.size else steps], device=dev)
+            torch.distributed.all_reduce(first, op=torch.distributed.ReduceOp.MIN, group=group)
+            if int(first) < steps:
+                parted = int(first)
+                break
+            check_at, check_part = i + 1, part
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    out = dict(steps=steps if parted is None else parted + 1, seconds=secs, launches=launches,
+               parted=parted, backend=str(torch.distributed.get_backend(group)))
+    if parted is not None:                 # the state before the parting step, whole
+        for i in range(check_at, parted):
+            check_part = step(check_part, *batch(i))
+        part = check_part
+    whole = D.gather_state(cfg, part, group, run["layout"])
+    if rank == 0:
+        torch.save({k: None if v is None else v.cpu() for k, v in whole._asdict().items()},
+                   _file(tmp, run, "state.pt"))
+    return out
+
+
+def _dist_child_serve(core, D, ops, group, tmp, run, dev):
+    saved = torch.load(_file(tmp, run, "model.pt"))
+    model = core.ServeModel(sv_x=saved["sv_x"].to(dev), alpha=saved["alpha"].to(dev),
+                            count=saved["count"].to(dev), gamma=saved["gamma"],
+                            binary=saved["binary"])
+    x = torch.as_tensor(np.load(_file(tmp, run, "inputs.npz"))["x"], device=dev)
+    predict = D.make_distributed_predict(group)
+    rows = D.shard_rows(x, group)
+    predict(model, rows)                   # warm-up
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores, labels = predict(model, rows)
+    torch.cuda.synchronize()
+    out = dict(seconds=time.perf_counter() - t0, launches=ops.launch_counts(),
+               backend=str(torch.distributed.get_backend(group)))
+    if torch.distributed.get_rank(group) == 0:
+        torch.save({"scores": scores.cpu(), "labels": labels.cpu()}, _file(tmp, run, "state.pt"))
+    return out
+
+
+def _dist_probe(group, dev) -> str:
+    """The collectives ``core.distributed`` calls, on CUDA tensors, checked."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size(group)
+    t = torch.full((4,), float(dist.get_rank(group) + 1), device=dev)
+    parts = [torch.empty_like(t) for _ in range(world)]
+    dist.all_gather(parts, t, group=group)
+    s = t.clone()
+    dist.all_reduce(s, group=group)
+    ok = (all(bool((p == r + 1).all()) for r, p in enumerate(parts))
+          and bool((s == world * (world + 1) / 2).all()))
+    check(ok, "all_gather / all_reduce on CUDA tensors gave wrong values")
+    return "all_gather and all_reduce on CUDA tensors ok"
+
+
+def _dist_child(rank, world, store, tmp, runs):
+    """A rank of phase 18 (a ``torch.multiprocessing`` spawn): the kernels
+    were built by the parent and are only loaded here; ``launch.dist.init``
+    picks the backend by its rule."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch import core
+    from repro_torch.core import distributed as D
+    from repro_torch.core import multiclass as mc
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dist as dist_launch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = Path(tmp)
+    dev = dist_launch.init("cuda", rank=rank, world_size=world, init_method=f"file://{store}",
+                           timeout_s=DIST_TIMEOUT_S)
+    group = dist.group.WORLD
+    try:
+        probe = _dist_probe(group, dev)
+        for run in runs:
+            if run["kind"] == "serve":
+                out = _dist_child_serve(core, D, ops, group, tmp, run, dev)
+            else:
+                out = _dist_child_run(core, mc, D, ops, group, tmp, run, dev)
+            out["probe"] = probe
+            _file(tmp, run, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_spawn(tmp: Path, runs, world: int) -> None:
+    import torch.multiprocessing as mp
+
+    store = tmp / f"store-{world}"
+    ctx = mp.start_processes(_dist_child, args=(world, str(store), str(tmp), runs),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DIST_JOIN_S
+    while not ctx.join(timeout=2.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise RuntimeError(f"phase 18: the {world} ranks did not finish in {DIST_JOIN_S} s")
+
+
+def _binary_near_tie(core, cfg, prev, xb, yb):
+    """Why a one-process and a distributed binary step part, from the two
+    states before it: a row whose margin lies on either side of 1 (within
+    1e-3), or an event whose two smallest |alpha| tie to 1e-5."""
+    from repro_torch.core.bsgd import decision_rows, insert_from_rows
+    from repro_torch.kernels import ops
+
+    margins, mins = {}, {}
+    for key, st in prev.items():
+        k_b = ops.rbf_matrix(xb, st.sv_x, cfg.gamma)
+        margins[key] = (yb * decision_rows(st, k_b)).cpu()
+        mid = insert_from_rows(cfg, st, xb, yb, k_b)
+        act = torch.arange(mid.alpha.shape[0], device=xb.device) < mid.count
+        mins[key] = torch.sort(torch.where(act, mid.alpha.abs(), torch.inf)).values[:2].cpu()
+    m1, m2 = margins["one process"], margins["distributed"]
+    split = torch.nonzero((m1 < 1) != (m2 < 1)).flatten()
+    if split.numel():
+        r = int(split[0])
+        return (abs(float(m1[r]) - float(m2[r])) < 1e-3,
+                f"margin near-tie: row {r} one process {float(m1[r])!r} distributed "
+                f"{float(m2[r])!r}")
+    a2 = mins["one process"]
+    tie = bool(a2[1] - a2[0] <= 1e-5 * a2[0])
+    return tie, f"event: two smallest |alpha| {a2.tolist()}"
+
+
+def _bank_columns_check(ops, st):
+    """The class layout's margin call scores C/W classes' columns of the bank:
+    each column's bits must not depend on how many columns the bank has."""
+    c, s, d = st.sv_x.shape
+    bank = st.sv_x.reshape(c * s, d)
+    xb = torch.as_tensor(np.random.default_rng(SEED + 7).standard_normal((DIST_BATCH, d))
+                         .astype(np.float32), device="cuda")
+    whole = ops.rbf_matrix(xb, bank, MC_GAMMA)
+    half = (c // DIST_WORLD) * s
+    parts = [ops.rbf_matrix(xb, bank[:half], MC_GAMMA), ops.rbf_matrix(xb, bank[half:], MC_GAMMA)]
+    equal = _same_bits(torch.cat(parts, 1), whole)
+    print(f"rbf_matrix columns: {DIST_BATCH} x {c * s} bank against its two {half}-column "
+          f"halves, bit-equal {equal}")
+    check(equal, "a column's bits depend on how many columns the bank has")
+
+
+def phase_distributed(core, mc, ops, data, mc_data, run_c, card):
+    """Phase 18: each layout on DIST_WORLD ranks sharing the card (gloo), and
+    replicated on a world of 1 under NCCL, against the same steps in one
+    process on the card."""
+    import tempfile
+
+    from repro_torch.core.predict import serve_cell
+    from repro_torch.launch import dist as dist_launch
+
+    print(card)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="dist-", dir=build))
+    dev = torch.device("cuda")
+    rule = {w: dist_launch.pick_backend(dev, w) for w in (DIST_WORLD, 1)}
+    print(f"backend rule: {DIST_WORLD} ranks on {torch.cuda.device_count()} card(s) -> "
+          f"{rule[DIST_WORLD]}; 1 rank -> {rule[1]}")
+    _bank_columns_check(ops, run_c[1])
+    (xtr, ytr), _ = data
+    (mxtr, mytr), (mxte, _) = mc_data
+    runs = _dist_runs()
+    singles = {}
+    for run in runs:
+        if run["kind"] == "serve":
+            model = core.export_model(run_c[1], MC_GAMMA)
+            torch.save({"sv_x": model.sv_x.cpu(), "alpha": model.alpha.cpu(),
+                        "count": model.count.cpu(), "gamma": model.gamma,
+                        "binary": model.binary}, _file(tmp, run, "model.pt"))
+            np.savez(_file(tmp, run, "inputs.npz"), x=mxte)
+            continue
+        steps = DIST_STEPS[run["name"]]
+        if run["kind"] == "class":
+            order = _mc_order(steps).numpy()
+            x, y = mxtr[order], mytr[order].astype(np.int64)
+            total = MC_TRAIN // DIST_BATCH
+        else:
+            order = torch.randperm(xtr.shape[0], generator=torch.Generator().manual_seed(SEED))
+            order = order[: steps * DIST_BATCH].numpy()
+            x, y = xtr[order], ytr[order]
+            total = xtr.shape[0] // DIST_BATCH
+        print(f"CUT: dist {run['name']} trains {steps} of the epoch's {total} steps")
+        np.savez(_file(tmp, run, "inputs.npz"), x=x, y=y)
+        xs, ys = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+        singles[run["name"]] = _dist_single(core, mc, ops, run, xs, ys)
+        np.save(_file(tmp, run, "trace.npy"), singles[run["name"]][0])
+    nccl = dict(runs[0], name="nccl replicated")
+    steps = DIST_STEPS[nccl["name"]]
+    print(f"CUT: dist {nccl['name']} trains {steps} of the epoch's "
+          f"{xtr.shape[0] // DIST_BATCH} steps")
+    with np.load(_file(tmp, runs[0], "inputs.npz")) as z:
+        x, y = z["x"][: steps * DIST_BATCH], z["y"][: steps * DIST_BATCH]
+    np.savez(_file(tmp, nccl, "inputs.npz"), x=x, y=y)
+    singles[nccl["name"]] = _dist_single(core, mc, ops, nccl, torch.as_tensor(x, device=dev),
+                                         torch.as_tensor(y, device=dev))
+    np.save(_file(tmp, nccl, "trace.npy"), singles[nccl["name"]][0])
+
+    t0 = time.perf_counter()
+    _dist_spawn(tmp, runs, DIST_WORLD)
+    print(f"spawn of {DIST_WORLD} ranks: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    _dist_spawn(tmp, [nccl], 1)
+    print(f"spawn of 1 rank: {time.perf_counter() - t0:.3f} s")
+
+    counts = {}
+    for run, world in [(r, DIST_WORLD) for r in runs] + [(nccl, 1)]:
+        outs = [json.loads(_file(tmp, run, f"rank{r}.json").read_text()) for r in range(world)]
+        for o in outs:
+            _add(counts, o["launches"])
+        got = torch.load(_file(tmp, run, "state.pt"))
+        backend = outs[0]["backend"]
+        check(all(o["backend"] == rule[world] for o in outs),
+              f"dist {run['name']}: the ranks ran {[o['backend'] for o in outs]}, the rule "
+              f"picks {rule[world]}")
+        staging = ("gloo copies CUDA tensors through host memory inside the collective"
+                   if backend == "gloo" else "NCCL works on the card")
+        head = (f"dist {run['name']}: backend {backend}, ranks {world}, staging in "
+                f"core.distributed none ({staging}; {outs[0]['probe']})")
+        if run["kind"] == "serve":
+            model = core.ServeModel(**{k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                                       for k, v in torch.load(_file(tmp, run, "model.pt")).items()})
+            scores, labels = serve_cell(model, mxte)
+            equal = (_same_bits(got["scores"], scores.cpu())
+                     and _same_bits(got["labels"], labels.cpu()))
+            err = float((got["scores"] - scores.cpu()).abs().max())
+            secs = max(o["seconds"] for o in outs)
+            print(f"{head}; {mxte.shape[0]} rows split {mxte.shape[0] // world} a rank: "
+                  f"{secs * 1e3:.3f} ms, class_scores {outs[0]['launches']['class_scores']} a rank; "
+                  f"largest score difference {err!r}, labels and scores bit-equal {equal}")
+            check(equal, "serve: the gathered scores and labels differ from one process's")
+            check(all(o["launches"]["class_scores"] == 1 for o in outs),
+                  "serve: not one class_scores launch a rank")
+            continue
+        trace, checks, final, secs1, launches1 = singles[run["name"]]
+        parted = outs[0]["parted"]
+        steps = outs[0]["steps"]
+        secs = max(o["seconds"] for o in outs)
+        kernel = ("merge_pick" if run["kind"] == "binary"
+                  else {"a": "merge_event_rounds", "c": "train_step"}[run["cfg"]])
+        check(all(o["launches"]["rbf_matrix"] > 0 for o in outs),
+              f"dist {run['name']}: rbf_matrix never launched")
+        check(all(o["launches"][kernel] > 0 for o in outs),
+              f"dist {run['name']}: {kernel} never launched")
+        if parted is None:
+            fields = [n for n in final._fields if getattr(final, n) is not None]
+            errs = {n: float((getattr(final, n).float().cpu() - got[n].float()).abs().max())
+                    for n in fields}
+            equal = all(_same_bits(getattr(final, n).cpu(), got[n]) for n in fields)
+            print(f"{head}; steps {steps}, us/step {world} ranks {secs / steps * 1e6:.1f}, "
+                  f"one process {secs1 / steps * 1e6:.1f}; first step whose integer state "
+                  f"parts: None (checked every {DIST_CHECK} steps and at the end); largest float "
+                  f"difference {max(errs.values())!r} ({max(errs, key=errs.get)}); bits equal "
+                  f"{equal}; {kernel} {outs[0]['launches'][kernel]} a rank")
+            # while the integers agree every layout's state is one process's bit
+            # for bit: slots' summed margins reach the Pegasos state only through
+            # which rows violate, and every other float is computed as one process does
+            check(equal, f"dist {run['name']}: the integers agree but the floats are not "
+                         f"bit-equal to one process (largest difference {max(errs.values())!r})")
+            continue
+        # parted at step `parted`: both states before it, then the diagnosis
+        cfg = _dist_config(core, mc, run)
+        base = max(k for k in checks if k <= parted)
+        st = checks[base]
+        with np.load(_file(tmp, run, "inputs.npz")) as z:
+            xs = torch.as_tensor(z["x"], device=dev)
+            ys = torch.as_tensor(z["y"], device=dev)
+        table = cfg.table().to(dev)
+        step_fn = mc.train_step_multiclass if run["kind"] == "class" else core.train_step
+        for i in range(base, parted):
+            st = step_fn(cfg, table, st, xs[i * DIST_BATCH:(i + 1) * DIST_BATCH],
+                         ys[i * DIST_BATCH:(i + 1) * DIST_BATCH])
+        other = core.SVMState(**{k: None if v is None else v.to(dev) for k, v in got.items()})
+        sl = slice(parted * DIST_BATCH, (parted + 1) * DIST_BATCH)
+        if run["kind"] == "class":
+            cpu = core.SVMState(*(None if t is None else t.cpu() for t in other))
+            explained, why = _near_tie(mc, cfg, {"cuda": st, "cpu": cpu},
+                                       {"cuda": table, "cpu": cfg.table()},
+                                       {"cuda": xs[sl], "cpu": xs[sl].cpu()},
+                                       {"cuda": ys[sl], "cpu": ys[sl].cpu()})
+        else:
+            explained, why = _binary_near_tie(core, cfg, {"one process": st, "distributed": other},
+                                              xs[sl], ys[sl])
+        print(f"{head}; steps {steps}, us/step {world} ranks {secs / steps * 1e6:.1f}, one "
+              f"process {secs1 / trace.shape[0] * 1e6:.1f}; first step whose integer state "
+              f"parts: {parted}; {why}")
+        check(explained, f"dist {run['name']} parts at step {parted} without a near-tie: {why}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the port's examples on the card
+# ---------------------------------------------------------------------------
+
+# each script's arguments on the card, and what they cut (None: the script's defaults)
+EXAMPLES = {
+    "torch_quickstart": (["--n", "1000", "--epochs", "1"],
+                         "1,000 of its 3,000 rows and 1 of its 3 epochs a method"),
+    "torch_svm_speedup": (["--n", "6000"], "6,000 of its 40,000 rows"),
+    "torch_svm_multiclass": (["--n", "2000", "--skip-loop-baseline"],
+                             "2,000 of its 6,000 rows and no loop-over-classes baseline"),
+    "torch_svm_stream": (["--n", "5000", "--chunk-rows", "1000"],
+                         "5,000 of its 8,192 rows in chunks of 1,000 (of 1,024)"),
+    "torch_svm_serve_live": (["--n", "2048", "--epochs", "1"],
+                             "2,048 of its 4,096 rows and 1 of its 2 epochs"),
+}
+EXAMPLE_TIMEOUT_S = 300
+
+
+def phase_examples(card):
+    import os
+
+    print(card)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for name, (args, cut) in EXAMPLES.items():
+        if cut:
+            print(f"CUT: {name} runs {cut}")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "examples" / f"{name}.py"), *args,
+                               "--device", "cuda"], capture_output=True, text=True, env=env,
+                              timeout=EXAMPLE_TIMEOUT_S, cwd=ROOT)
+        secs = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        for line in lines:
+            print(f"  {name}: {line}")
+        if proc.returncode:
+            print(proc.stderr[-4000:])
+        check(proc.returncode == 0, f"{name} exited {proc.returncode}")
+        print(f"{name} ok in {secs:.3f} s")
+        if name == "torch_svm_speedup":
+            figures = [ln for ln in lines if ln.startswith("paper figures")]
+            check(len(figures) == 1, "torch_svm_speedup printed no paper figures line")
+            print(figures[0])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -3219,6 +3719,7 @@ def main() -> int:
     with Phase("5 card vs CPU replay"):
         phase_replay(core, data)
     with Phase("6 profile"):
+        print(f"CUT: phase 6 profiles {PROFILE_STEPS} steps a window (cut from 300)")
         phase_profile(core, runs["lookup-wd"], "binary lookup-wd")
         phase_profile(core, runs["gss"], "binary gss")
         phase_profile(core, runs["gss"], "binary gss-precise (from the gss state)",
@@ -3254,6 +3755,10 @@ def main() -> int:
         records["bdca_ascent"], bdca_counts = phase_bdca(
             core, mc, ops, ref, data, mc_data, binary_fused[0]["accuracy"],
             mc_runs["a"][0]["accuracy"], card)
+    with Phase("18 distributed"):
+        dist_counts = phase_distributed(core, mc, ops, data, mc_data, fused_runs["c"], card)
+    with Phase("19 examples"):
+        phase_examples(card)
 
     # launches on the main paths: the binary runs of phase 4 (rbf_matrix,
     # merge_pick, gss_pick, and merge_scores and gss, now 0) and the
@@ -3269,6 +3774,8 @@ def main() -> int:
     for name, n in stream_counts.items():     # phase 16's streamed paths
         counts[name] += n
     for name, n in bdca_counts.items():       # phase 17's bdca paths
+        counts[name] += n
+    for name, n in dist_counts.items():       # phase 18's ranks, every child's launches
         counts[name] += n
     meta = {
         "rbf_matrix": ("src/repro_torch/csrc/rbf_kernel.cu", "src/repro/kernels/rbf_kernel.py:57"),

@@ -6,6 +6,7 @@ class axis, streaming, prequential evaluation and serving (counterpart of
 # ``predict`` to the module, and the ``from .bsgd import`` below then makes
 # ``repro_torch.core.predict`` the binary predict function again (as in
 # ``repro.core``) — import serving names from ``repro_torch.core`` itself
+from . import budget, kernel_cache, merge_math
 from .predict import (AsyncBatchQueue, BatchQueue, ModelBank, QueueFull, ServeDeadline, ServeModel,
                       ServeTimeout, default_buckets, drive_trace, export_model, load_serve_model,
                       pad_bucket, predict_labels, predict_proba, ragged_trace_sizes, serve_requests,
@@ -17,7 +18,11 @@ from . import bdca
 from .bdca import box_from_lambda
 from .budget import (METHODS, STRATEGIES, MaintenanceInfo, candidate_scores, kmeans_codebook,
                      maintenance_step, run_maintenance, run_maintenance_classes, seed_codebook)
-from .lookup import MergeLookupTable, build_merge_tables, default_table
+from .lookup import (MergeLookupTable, bilinear_lookup, build_lookup_table, build_merge_tables,
+                     default_table)
+from .merge_math import (EPS_PRECISE, EPS_STANDARD, KAPPA_UNIMODAL, golden_section_search,
+                         gss_num_iters, merge_alpha_z, merge_point, s_objective, solve_merge,
+                         wd_norm_at, weight_degradation)
 from .multiclass import (MulticlassSVMConfig, accuracy_multiclass, check_labels, class_kernel_rows,
                          decision_function_multiclass, fit_multiclass, fit_multiclass_loop,
                          fit_multiclass_stream, init_multiclass_state, ovr_targets,
@@ -41,4 +46,8 @@ __all__ = [
     "run_maintenance_classes", "seed_codebook", "train_chunk", "train_chunk_multiclass",
     "train_epoch", "train_epoch_multiclass", "train_epoch_multiclass_stream",
     "train_epoch_stream", "train_step", "train_step_from_rows", "train_step_multiclass",
+    "bilinear_lookup", "budget", "build_lookup_table", "kernel_cache", "merge_math",
+    "EPS_PRECISE", "EPS_STANDARD", "KAPPA_UNIMODAL", "golden_section_search", "gss_num_iters",
+    "merge_alpha_z", "merge_point", "s_objective", "solve_merge", "wd_norm_at",
+    "weight_degradation",
 ]

@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from . import kernel_cache
-from .bsgd import BSGDConfig, SVMState, drain_budget
+from .bsgd import BSGDConfig, SVMState, decision_rows, drain_budget
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 
@@ -89,12 +89,15 @@ def insert_from_rows(cfg: BSGDConfig, state: SVMState, xb, yb, k_b, k_bb=None, *
     exceed the budget by up to ``batch_size``.  ``k_b = k(xb, sv_x)`` are
     the margin rows, ``k_bb = k(xb, xb)`` the cache block among the new
     points.  No Pegasos shrink: the box bounds the coefficients."""
+    return _insert(cfg, state, xb, yb, k_b, k_bb, decision_rows(state, k_b), impl=impl)
+
+
+def _insert(cfg: BSGDConfig, state: SVMState, xb, yb, k_b, k_bb, f, *,
+            impl: str = "auto") -> SVMState:
+    """``insert_from_rows`` given ``f``, the decision values of ``xb``."""
     slots = state.alpha.shape[-1]
     idx = kref.iota(slots, state.alpha.device)
     count = state.count[..., None]
-    a_act = torch.where(idx < count, state.alpha, 0.0)
-    k = k_b.to(state.alpha.dtype)
-    f = k @ a_act if a_act.dim() == 1 else (k @ a_act[..., None])[..., 0]
     margin = yb * f
 
     # the optimal dual step from a = 0 (K_ii = 1): nonzero iff the margin

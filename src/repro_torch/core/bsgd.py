@@ -212,6 +212,15 @@ def accuracy(state: SVMState, x, y, gamma, *, impl: str = "auto", device=None):
     return (pred == _tensor(y, dev)).to(torch.float32).mean()
 
 
+def decision_rows(state: SVMState, k_b):
+    """f(xb) from the margin rows ``k_b = k(xb, sv_x)``: (batch,), or (C, batch)
+    for a stacked state; slots at or past ``count`` contribute nothing."""
+    idx = budget_mod.kref.iota(state.alpha.shape[-1], state.alpha.device)
+    a_act = torch.where(idx < state.count[..., None], state.alpha, 0.0)
+    k = k_b.to(state.alpha.dtype)
+    return k @ a_act if a_act.dim() == 1 else (k @ a_act[..., None])[..., 0]
+
+
 def insert_from_rows(cfg: BSGDConfig, state: SVMState, xb, yb, k_b, k_bb=None) -> SVMState:
     """The Pegasos shrink + violator insert half of a step (no maintenance).
 
@@ -220,16 +229,17 @@ def insert_from_rows(cfg: BSGDConfig, state: SVMState, xb, yb, k_b, k_bb=None) -
     ``k_b`` (C, batch, slots).  ``k_bb = k(xb, xb)`` (batch, batch) is needed
     only with the kernel cache.  ``count`` may exceed the budget by up to
     ``batch_size`` afterwards; ``drain_budget`` drains it."""
+    return _insert(cfg, state, xb, yb, k_b, k_bb, decision_rows(state, k_b))
+
+
+def _insert(cfg: BSGDConfig, state: SVMState, xb, yb, k_b, k_bb, f) -> SVMState:
+    """``insert_from_rows`` given ``f``, the decision values of ``xb``."""
     slots = state.alpha.shape[-1]
     t = state.step
     eta = 1.0 / (cfg.lambda_ * t)                # float32, as the reference's
 
     idx = budget_mod.kref.iota(slots, state.alpha.device)
     count = state.count[..., None]
-    active = idx < count
-    a_act = torch.where(active, state.alpha, 0.0)
-    k = k_b.to(state.alpha.dtype)
-    f = k @ a_act if a_act.dim() == 1 else (k @ a_act[..., None])[..., 0]
     margin = yb * f
 
     # Pegasos shrink: w <- (1 - eta lambda) w.  Every fresh SV's |alpha| is

@@ -20,8 +20,8 @@ from ..kernels.ref import bilinear_lookup
 
 DEFAULT_GRID = 400  # paper: "in our experiments we use a grid of size 400x400"
 
-__all__ = ["DEFAULT_GRID", "MergeLookupTable", "bilinear_lookup", "build_merge_tables",
-           "default_table"]
+__all__ = ["DEFAULT_GRID", "MergeLookupTable", "bilinear_lookup", "build_lookup_table",
+           "build_merge_tables", "default_table"]
 
 
 def build_merge_tables(grid_size: int = DEFAULT_GRID, eps: float = merge_math.EPS_PRECISE):
@@ -43,6 +43,16 @@ def build_merge_tables(grid_size: int = DEFAULT_GRID, eps: float = merge_math.EP
     wd[:, 0] = np.minimum(g, 1.0 - g) ** 2
     return (torch.from_numpy(h.astype(np.float32)),
             torch.from_numpy(wd.astype(np.float32)))
+
+
+def build_lookup_table(fn, grid_size: int = DEFAULT_GRID):
+    """``fn(u, v)`` tabulated on the ``G x G`` grid ``linspace(0, 1, G)`` of the
+    unit square (float32, indexed ``[i_u, j_v]``), for ``bilinear_lookup``:
+    the "replace an inner solver by an interpolated table" pattern for any
+    ``fn`` that takes broadcast tensors."""
+    g = torch.linspace(0.0, 1.0, grid_size)
+    uu, vv = torch.meshgrid(g, g, indexing="ij")
+    return fn(uu, vv)
 
 
 @dataclass

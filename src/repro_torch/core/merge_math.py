@@ -24,6 +24,8 @@ from ..kernels import ref as kref
 INVPHI = (math.sqrt(5.0) - 1.0) / 2.0  # 1/phi ~ 0.618034
 # kappa = exp(-gamma d^2) is clipped away from 0 so log(kappa) stays finite.
 KAPPA_MIN = 1e-30
+# Paper Lemma 1: s_{m,kappa} is unimodal iff kappa > e^{-2}.
+KAPPA_UNIMODAL = math.exp(-2.0)
 # Paper precisions: runtime GSS eps=0.01, table-build GSS eps=1e-10.
 EPS_STANDARD = 1e-2
 EPS_PRECISE = 1e-10
@@ -59,6 +61,12 @@ def wd_norm_at(h, m, kappa):
     """WD / (alpha_a + alpha_b)^2 = m^2 + (1-m)^2 + 2 m (1-m) kappa - s(h)^2."""
     s = s_objective(h, m, kappa)
     return m * m + (1.0 - m) * (1.0 - m) + 2.0 * m * (1.0 - m) * kappa - s * s
+
+
+def solve_merge(m, kappa, eps: float = EPS_STANDARD):
+    """(h*, WD_norm(m, kappa)) via golden section search."""
+    h = golden_section_search(m, kappa, eps=eps)
+    return h, wd_norm_at(h, m, kappa)
 
 
 def merge_alpha_z(alpha_a, alpha_b, kappa, h):
@@ -100,3 +108,19 @@ def gss_numpy(m, kappa, eps: float = EPS_PRECISE):
         a = np.where(go_left, a, c)
         b = np.where(go_left, d, b)
     return 0.5 * (a + b)
+
+
+def brute_force_h(m, kappa, n_grid: int = 200_001):
+    """Dense-grid argmax oracle for tests (float64 numpy)."""
+    hs = np.linspace(0.0, 1.0, n_grid)
+    kk = max(float(kappa), KAPPA_MIN)
+    vals = float(m) * kk ** ((1.0 - hs) ** 2) + (1.0 - float(m)) * kk ** (hs**2)
+    return float(hs[int(np.argmax(vals))])
+
+
+def s_second_derivative_at_half(kappa):
+    """d^2/dh^2 s_{1/2,kappa}(h) at h = 1/2, ``kappa^{1/4} log(kappa) (2 + log(kappa))``:
+    positive (two modes) iff kappa < e^{-2} (paper Lemma 1)."""
+    kappa = torch.as_tensor(kappa, dtype=torch.float32)
+    lk = torch.log(torch.clamp(kappa, KAPPA_MIN, 1.0))
+    return kappa_pow(kappa, 0.25) * lk * (2.0 + lk)

@@ -118,14 +118,12 @@ def accuracy_multiclass(state: SVMState, x, y, gamma, *, impl: str = "auto", dev
     return (pred == _tensor(y, dev, torch.int32)).to(torch.float32).mean()
 
 
-def _fused_step_multiclass_(cfg: MulticlassSVMConfig, table, state: SVMState, xb, yb, *,
-                            impl: str = "auto") -> SVMState:
+def _fused_step_ovr_(b: BSGDConfig, table, state: SVMState, xb, y_ovr, *,
+                     impl: str = "auto") -> SVMState:
     """``step_engine="pallas"``: every class's whole step as one
     ``train_step`` launch, updating the state's leaves IN PLACE (the state
-    must own contiguous leaves)."""
-    b = cfg.binary
+    must own contiguous leaves); ``y_ovr`` (C, batch) are the classes' targets."""
     k_bb = kops.rbf_matrix(xb, xb, b.gamma, impl=impl)
-    y_ovr = ovr_targets(yb, cfg.n_classes, dtype=getattr(torch, b.dtype))
     out = kops.train_step(
         state.sv_x, state.alpha, state.kmat, state.count, state.step, state.n_inserts,
         state.n_merges, xb, y_ovr, k_bb, table, budget=b.budget, lambda_=b.lambda_,
@@ -134,26 +132,25 @@ def _fused_step_multiclass_(cfg: MulticlassSVMConfig, table, state: SVMState, xb
     return state._replace(step=out[4])
 
 
-def train_step_multiclass(cfg: MulticlassSVMConfig, table, state: SVMState, xb, yb, *,
-                          impl: str = "auto") -> SVMState:
-    """One lockstep step for all C one-vs-rest problems; the caller's state is
-    left as it was.
+def _targets(cfg: MulticlassSVMConfig, yb):
+    return ovr_targets(yb, cfg.n_classes, dtype=getattr(torch, cfg.binary.dtype))
 
-    xb: (batch, dim); yb: (batch,) integer class ids in [0, C), on the
-    state's device.  With ``step_engine="pallas"`` the whole step is one
-    ``train_step`` launch.  Otherwise one kernel call gives every class's
-    margin rows; the solver's insert half runs batched over the class axis
-    (the Pegasos shrink and insert, or with ``solver="bdca"`` the dual
-    insert and one ``bdca_ascent`` launch for every class), then
-    maintenance drains every class: the fused event engine with
-    ``maintenance_engine="pallas"``, else the configured strategy batched
-    over the classes."""
-    b = cfg.binary
+
+def _fused_step_multiclass_(cfg: MulticlassSVMConfig, table, state: SVMState, xb, yb, *,
+                            impl: str = "auto") -> SVMState:
+    return _fused_step_ovr_(cfg.binary, table, state, xb, _targets(cfg, yb), impl=impl)
+
+
+def train_step_ovr(b: BSGDConfig, table, state: SVMState, xb, y_ovr, *,
+                   impl: str = "auto") -> SVMState:
+    """``train_step_multiclass`` given the targets: one lockstep step of the
+    stacked state's classes, ``y_ovr`` (C, batch) their one-vs-rest targets
+    in {-1, +1} (the ``class`` layout of ``core.distributed`` passes a
+    rank's rows of them)."""
     if b.step_engine == "pallas":
-        return _fused_step_multiclass_(cfg, table, _owned(state), xb, yb, impl=impl)
+        return _fused_step_ovr_(b, table, _owned(state), xb, y_ovr, impl=impl)
     k_b = class_kernel_rows(state.sv_x, xb, b.gamma, impl=impl)       # (C, batch, slots)
     k_bb = kops.rbf_matrix(xb, xb, b.gamma, impl=impl) if b.use_kernel_cache else None
-    y_ovr = ovr_targets(yb, cfg.n_classes, dtype=getattr(torch, b.dtype))
     if b.solver == "bdca":
         mid = bdca.insert_from_rows(b, state, xb, y_ovr, k_b, k_bb, impl=impl)
     else:
@@ -171,6 +168,23 @@ def train_step_multiclass(cfg: MulticlassSVMConfig, table, state: SVMState, xb, 
             impl=impl, unroll=b.batch_size)
     sv_x, alpha, kmat, count, n_merges = out
     return mid._replace(sv_x=sv_x, alpha=alpha, kmat=kmat, count=count, n_merges=n_merges)
+
+
+def train_step_multiclass(cfg: MulticlassSVMConfig, table, state: SVMState, xb, yb, *,
+                          impl: str = "auto") -> SVMState:
+    """One lockstep step for all C one-vs-rest problems; the caller's state is
+    left as it was.
+
+    xb: (batch, dim); yb: (batch,) integer class ids in [0, C), on the
+    state's device.  With ``step_engine="pallas"`` the whole step is one
+    ``train_step`` launch.  Otherwise one kernel call gives every class's
+    margin rows; the solver's insert half runs batched over the class axis
+    (the Pegasos shrink and insert, or with ``solver="bdca"`` the dual
+    insert and one ``bdca_ascent`` launch for every class), then
+    maintenance drains every class: the fused event engine with
+    ``maintenance_engine="pallas"``, else the configured strategy batched
+    over the classes."""
+    return train_step_ovr(cfg.binary, table, state, xb, _targets(cfg, yb), impl=impl)
 
 
 def train_epoch_multiclass(cfg: MulticlassSVMConfig, table, state: SVMState, x, y, perm, *,

@@ -3,17 +3,20 @@
 The ``--arch svm_bsgd`` arm of ``repro.launch.train``: ``svm_stream_loop``
 trains over a chunk source (a directory of ``.npz`` shards or a LIBSVM text
 file) through the streaming drivers, with checkpoints, prefetch, retries and
-the finite guard.  On one card, ``--svm-layout replicated`` runs
-``fit_stream``'s chunk program and ``class`` runs ``fit_multiclass_stream``'s
-(the reference holds its mesh loop to these single-device drivers).
+the finite guard.  ``--svm-layout replicated`` or ``slots`` trains one binary
+problem (``fit_stream``), ``class`` ``--svm-classes`` one-vs-rest problems
+(``fit_multiclass_stream``).  On one process these are the single-device
+drivers; under ``torchrun`` every rank runs the layout's chunk program
+(``core.distributed``) over a process group (``launch.dist``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch svm_bsgd \\
         --stream shards/ --svm-layout class --svm-classes 10 --ckpt-dir ck
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch svm_bsgd --svm-layout slots --stream shards/
 
 It runs on the card; ``--device cpu`` runs it on the host (the CPU tests use
-it).  The ``slots`` layout needs the distributed layer (ROADMAP.md Queue 1
-item 11) and the language-model arms the LM scaffold (item 12); both raise
-``NotImplementedError``.
+it).  The language-model arms need the LM scaffold (ROADMAP.md Queue 1 item
+12) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,42 +31,80 @@ def svm_stream_loop(source, *, layout: str = "replicated", n_classes: int = 8, b
                     ckpt_dir: str | None = None, ckpt_every: int = 0,
                     max_chunks: int | None = None, prefetch: int = 0, verbose: bool = True,
                     retry=None, guard_finite: bool = False, report=None, skip_chunks=(),
-                    device=None):
-    """Streamed SVM training over any ``data.stream.ChunkSource`` on one device.
+                    device=None, group=None):
+    """Streamed SVM training over any ``data.stream.ChunkSource``.
 
-    ``layout="replicated"`` trains one binary problem (``fit_stream``),
-    ``"class"`` ``n_classes`` one-vs-rest problems
+    ``layout="replicated"`` or ``"slots"`` trains one binary problem
+    (``fit_stream``), ``"class"`` ``n_classes`` one-vs-rest problems
     (``fit_multiclass_stream``); epoch shuffling, remainder carry,
     checkpoints every ``ckpt_every`` chunks and mid-epoch resume are the
     streaming drivers' contract.  ``prefetch``/``retry``/``guard_finite``/
     ``report``/``skip_chunks`` go to the driver as they are.
 
+    ``group``, a process group of W > 1 ranks, makes every rank (each calling
+    this with the same arguments) run each chunk through ``layout``'s chunk
+    program (``core.distributed.make_distributed_chunk_step``) on its part
+    of the chunk's batch axis and of the state; the streaming driver holds the whole
+    state on every rank between chunks (one gather a chunk), and rank 0
+    alone writes the checkpoints.  With no group, or a world of 1, it is the
+    single-device loop.
+
     Returns ``(state, cfg)``."""
+    import torch.distributed as dist
+
     from ..core import (BSGDConfig, MulticlassSVMConfig, fit_multiclass_stream, fit_stream,
                         resolve_device)
+    from ..core import distributed as dist_mod
 
-    if layout == "slots":
-        raise NotImplementedError(
-            "--svm-layout slots shards the SV slots across devices: the distributed layer is "
-            "not ported to repro_torch yet (ROADMAP.md Queue 1 item 11)")
-    if layout not in ("replicated", "class"):
-        raise ValueError(f"layout={layout!r} not in ('replicated', 'slots', 'class')")
+    if layout not in dist_mod.LAYOUTS:
+        raise ValueError(f"layout={layout!r} not in {dist_mod.LAYOUTS}")
     dev = resolve_device(device)
     bcfg = BSGDConfig(budget=budget, lambda_=lambda_, gamma=gamma, method=method,
                       batch_size=batch_size)
+    is_class = layout == "class"
+    cfg = MulticlassSVMConfig(n_classes=n_classes, binary=bcfg) if is_class else bcfg
+    fit = fit_multiclass_stream if is_class else fit_stream
     kw = dict(epochs=epochs, seed=seed, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
               max_chunks=max_chunks, prefetch=prefetch, retry=retry,
               guard_finite=guard_finite, report=report, skip_chunks=skip_chunks, device=dev)
-    if layout == "class":
-        cfg = MulticlassSVMConfig(n_classes=n_classes, binary=bcfg)
-        state = fit_multiclass_stream(cfg, source, **kw)
+    rank, world = (0, 1) if group is None else (dist.get_rank(group), dist.get_world_size(group))
+    ran = layout
+    if world == 1:
+        state = fit(cfg, source, **kw)
     else:
-        cfg = bcfg
-        state = fit_stream(cfg, source, **kw)
-    if verbose:
-        print(f"[train] svm stream done on {dev}: layout={layout} chunks={source.n_chunks} "
-              f"rows={source.n_rows} sv_count={state.count.tolist()}", flush=True)
+        ran = dist_mod.resolve_layout(cfg, layout, world)
+        kw["ckpt_every"] = ckpt_every if rank == 0 else 0     # rank 0 alone writes
+        state = fit(cfg, source, chunk_fn=_distributed_chunks(cfg, group, layout, dev), **kw)
+        dist.barrier(group)        # rank 0's last checkpoint is on disk before any rank returns
+    if verbose and rank == 0:
+        print(f"[train] svm stream done on {dev}: layout={ran} chunks={source.n_chunks} "
+              f"rows={source.n_rows} sv_count={state.count.tolist()} ranks={world}", flush=True)
     return state, cfg
+
+
+def _distributed_chunks(cfg, group, layout: str, dev):
+    """The streaming drivers' ``chunk_fn`` of a distributed run: the whole state
+    and the whole host chunk in, each rank's part through the layout's chunk
+    program, the whole state out on every rank."""
+    import torch
+
+    from ..core import distributed as dist_mod
+    from ..core.multiclass import MulticlassSVMConfig, check_labels
+
+    is_class = isinstance(cfg, MulticlassSVMConfig)
+    chunk = dist_mod.make_distributed_chunk_step(cfg, group, layout=layout)
+
+    def chunk_fn(state, xc, yc):
+        if is_class:
+            check_labels(yc, cfg.n_classes)
+        xc = dist_mod.shard_rows(torch.as_tensor(xc), group, dim=1)
+        yc = dist_mod.shard_rows(torch.as_tensor(yc), group, dim=1)
+        xc = xc.to(dev, torch.float32)
+        yc = yc.to(dev, torch.int64 if is_class else torch.float32)
+        part = chunk(dist_mod.shard_state(cfg, state, group, layout), xc, yc)
+        return dist_mod.gather_state(cfg, part, group, layout)
+
+    return chunk_fn
 
 
 def _open_stream(path: str, *, chunk_rows: int, n_features: int | None, binary: bool):
@@ -119,15 +160,25 @@ def main(argv=None) -> None:
         raise SystemExit("--arch svm_bsgd needs --stream PATH")
     from ..data import ResilienceReport, RetryPolicy
 
+    from . import dist as dist_launch
+
     source = _open_stream(args.stream, chunk_rows=args.chunk_rows, n_features=args.n_features,
                           binary=args.svm_layout != "class")
     report = ResilienceReport() if args.retry or args.guard_finite else None
     retry = RetryPolicy(max_attempts=args.retry) if args.retry else None
-    svm_stream_loop(source, layout=args.svm_layout, n_classes=args.svm_classes,
-                    budget=args.svm_budget, batch_size=args.batch_size, epochs=args.epochs,
-                    seed=args.seed, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                    prefetch=args.prefetch, retry=retry, guard_finite=args.guard_finite,
-                    report=report, device=args.device)
+    device, group = args.device, None
+    if "WORLD_SIZE" in os.environ:            # started by torchrun
+        import torch.distributed as dist
+
+        device, group = dist_launch.init(args.device), dist.group.WORLD
+    try:
+        svm_stream_loop(source, layout=args.svm_layout, n_classes=args.svm_classes,
+                        budget=args.svm_budget, batch_size=args.batch_size, epochs=args.epochs,
+                        seed=args.seed, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                        prefetch=args.prefetch, retry=retry, guard_finite=args.guard_finite,
+                        report=report, device=device, group=group)
+    finally:
+        dist_launch.shutdown()
     if report is not None:
         print(f"[train] resilience: {report!r}")
 

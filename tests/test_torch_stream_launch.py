@@ -87,7 +87,6 @@ def test_train_cli_streams_a_libsvm_file_on_the_class_axis(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "svm_bsgd", "--stream", ".", "--svm-layout", "slots"], "11"),
     (["--arch", "smollm_360m", "--smoke"], "12")])
 def test_train_cli_unported_arms_raise(argv, item, tmp_path):
     from repro_torch.launch import train
@@ -96,6 +95,22 @@ def test_train_cli_unported_arms_raise(argv, item, tmp_path):
     argv = [str(tmp_path) if a == "." else a for a in argv]
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         train.main(argv + ["--device", "cpu"])
+
+
+def test_train_cli_slots_layout_on_one_process_is_fit_stream(tmp_path, capsys):
+    """``--svm-layout slots`` outside ``torchrun`` is the single-device
+    ``fit_stream`` (its distributed runs: ``test_torch_distributed.py``)."""
+    from repro_torch.launch import train
+    x, y = tdata.make_blobs(np.random.default_rng(0), 32, 4)
+    tdata.write_npz_chunks(str(tmp_path / "s"), x, y, 16)
+    ck = str(tmp_path / "ck")
+    train.main(["--arch", "svm_bsgd", "--stream", str(tmp_path / "s"), "--svm-layout", "slots",
+                "--svm-budget", "4", "--ckpt-dir", ck, "--ckpt-every", "2", "--device", "cpu"])
+    assert "layout=slots chunks=2 rows=32" in capsys.readouterr().out
+    cfg = tcore.BSGDConfig(budget=4, lambda_=1e-4, gamma=0.5, batch_size=8)
+    direct = tcore.fit_stream(cfg, tdata.FileChunks(sorted(
+        str(p) for p in (tmp_path / "s").iterdir())), device=CPU)
+    _bit_equal(direct, _restored(ck, direct))
 
 
 def test_train_cli_needs_a_stream():
