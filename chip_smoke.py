@@ -174,9 +174,39 @@ non-zero exit code:
      the ``kernels`` line.
      Before the runs, ``rbf_matrix`` over the class bank against its two
      halves: a column's bits do not depend on the bank's width;
- 19. the port's five examples (``examples/torch_*.py``) as subprocesses on
-     ``cuda`` (a ``CUT:`` line where the arguments cut the defaults), with
-     ``torch_svm_speedup.py``'s two paper figures on a line of their own.
+ 19. the port's five SVM examples (``examples/torch_*.py``) as subprocesses
+     on ``cuda`` (a ``CUT:`` line where the arguments cut the defaults), with
+     ``torch_svm_speedup.py``'s two paper figures on a line of their own;
+ 20. the language-model serving path (``launch.serve``, ``models``,
+     ``core.budgeted_kv``; no kernel of the port lies on it, as no Pallas
+     kernel lies on the reference's), every time and byte count beside the
+     card's name and power limit: (a) ``serve`` on ``smollm_360m`` as
+     published (32 layers, d 960, bf16, seeded random weights) at batch 4,
+     prompt 32 and prompt 4,096 (the chunked online-softmax prefill), 64
+     tokens generated each, under ``torch.cuda.set_sync_debug_mode("error")``
+     (no host read in the decode loop): prefill ms, decode ms a token,
+     tokens/s, peak device bytes, then a profiled decode window (device busy
+     µs, idle share and launches a token; a ``CUT:`` line); (b) float32
+     decode step by step against one full forward within 2e-2 (the
+     reference's tolerance): ``smollm_360m`` and ``mamba2_130m`` whole,
+     ``h2o_danube3_4b`` at depth 2 prefilling its 4,096 window and decoding
+     past it, ``deepseek_v2_236b`` at depth 2 and ``jamba_v01_52b`` at 8
+     (the MoE configs at the reference test's no-drop capacity; a ``CUT:``
+     line each); (c) ``smollm_360m`` at full width and depth 2, float32, the
+     card's prefill and decode logits against the port's CPU path on the
+     same weights within 1e-3 of the logits' scale, greedy tokens equal off a
+     near-tie; (d) every other family once in bf16 at its published width,
+     prompt 32 and 16 decode steps at batch 4 (``h2o_danube3_4b`` also prompt
+     4,096 with 64 steps), whole where it fits (``mamba2_130m``,
+     ``h2o_danube3_4b``, ``yi_9b``, ``hubert_xlarge`` through
+     ``encode_step``) and else at the smallest depth that holds every layer
+     kind (a ``CUT:`` line each): logits finite with the reference's shapes,
+     tokens in ``[0, vocab_padded)``, prefill ms, decode ms a token, peak
+     bytes; (e) the budgeted KV cache at (a)'s KV width (batch 4, 5 heads of
+     64, budget 512, 4,096 appends of a drifting stream, sync debug mode
+     "error"), merge and evict side by side against the exact cache (merge's
+     relative attention error no larger), µs an append below and at the
+     budget, then ``examples/torch_budgeted_kv_serve.py`` on ``cuda``.
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 It imports nothing from the JAX package.  Without a CUDA device, or without
@@ -3655,30 +3685,344 @@ EXAMPLES = {
 EXAMPLE_TIMEOUT_S = 300
 
 
-def phase_examples(card):
+def run_example(name: str, args) -> list[str]:
+    """``examples/<name>.py args --device cuda`` as a subprocess; its output
+    lines, printed; fails unless it exits 0."""
     import os
 
-    print(card)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "examples" / f"{name}.py"), *args,
+                           "--device", "cuda"], capture_output=True, text=True, env=env,
+                          timeout=EXAMPLE_TIMEOUT_S, cwd=ROOT)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        print(f"  {name}: {line}")
+    if proc.returncode:
+        print(proc.stderr[-4000:])
+    check(proc.returncode == 0, f"{name} exited {proc.returncode}")
+    print(f"{name} ok in {secs:.3f} s")
+    return lines
+
+
+def phase_examples(card):
+    print(card)
     for name, (args, cut) in EXAMPLES.items():
         if cut:
             print(f"CUT: {name} runs {cut}")
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, str(ROOT / "examples" / f"{name}.py"), *args,
-                               "--device", "cuda"], capture_output=True, text=True, env=env,
-                              timeout=EXAMPLE_TIMEOUT_S, cwd=ROOT)
-        secs = time.perf_counter() - t0
-        lines = proc.stdout.strip().splitlines()
-        for line in lines:
-            print(f"  {name}: {line}")
-        if proc.returncode:
-            print(proc.stderr[-4000:])
-        check(proc.returncode == 0, f"{name} exited {proc.returncode}")
-        print(f"{name} ok in {secs:.3f} s")
+        lines = run_example(name, args)
         if name == "torch_svm_speedup":
             figures = [ln for ln in lines if ln.startswith("paper figures")]
             check(len(figures) == 1, "torch_svm_speedup printed no paper figures line")
             print(figures[0])
+
+
+# Phase 20: language-model serving
+# ---------------------------------------------------------------------------
+
+LM_DEVICE = "cuda"
+LM_SERVE_ARCH = "smollm_360m"
+LM_BATCH = 4
+# (prompt, generated) of (a): the CLI's prompt, and train_4k's length (the
+# chunked online-softmax prefill)
+LM_SERVE_SHAPES = ((32, 64), (4096, 64))
+LM_PROFILE_STEPS = 4               # cut from 16: the profiler's read-back of ~2,900 kernels a step
+LM_DECODE_TOL = 2e-2             # the reference's decode-vs-full tolerance
+LM_CPU_TOL = 1e-3
+LM_CPU_STEPS = 8
+# (b): depth (None: the whole model), tokens prefilled first, and tokens then
+# decoded one by one, against one full forward over all of them; h2o
+# prefills its 4,096 window and decodes 16 past it, so the ring wraps (the
+# serve path's placement; decoding the whole window one by one took 19.7 s)
+LM_DECODE_CHECKS = {"smollm_360m": (None, 0, 16), "mamba2_130m": (None, 0, 16),
+                    "h2o_danube3_4b": (2, 4096, 16), "deepseek_v2_236b": (2, 0, 16),
+                    "jamba_v01_52b": (8, 0, 16)}
+# (d): every other family in bf16 at its published width; depth None is the
+# whole model, else the smallest depth that holds every layer kind
+LM_FAMILIES = {"mamba2_130m": None, "h2o_danube3_4b": None, "yi_9b": None, "hubert_xlarge": None,
+               "deepseek_v2_236b": 2, "deepseek_v3_671b": 4, "jamba_v01_52b": 8,
+               "chameleon_34b": 2, "deepseek_coder_33b": 2}
+LM_FAMILY_SHAPES = {"h2o_danube3_4b": ((32, 16), (4096, 64))}   # else ((32, 16),)
+# (e): the budgeted KV cache at (a)'s model's KV width
+KV_HEADS, KV_HEAD_DIM, KV_BUDGET, KV_APPENDS = 5, 64, 512, 4096
+
+
+class _NoSync:
+    """Fail on any host synchronisation inside: the decode and append loops
+    must read nothing from the card."""
+
+    def __enter__(self):
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        return False
+
+
+def _free() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lm_tokens(cfg, shape, seed: int = SEED):
+    gen = torch.Generator(device=LM_DEVICE)
+    gen.manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, shape, generator=gen, device=LM_DEVICE)
+
+
+def _lm_cfg(configs, arch: str, depth=None, **kw):
+    cfg = configs.get(arch)
+    if depth is not None:
+        print(f"CUT: {arch} runs {depth} of its {cfg.n_layers} layers "
+              f"(layer plan {[k for k in dict.fromkeys(cfg.layer_plan())]})")
+        kw["n_layers"] = depth
+    return dataclasses.replace(cfg, **kw)
+
+
+def _no_drop(cfg):
+    """The reference test's MoE capacity (``test_archs_smoke.py:77-79``)."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0,
+                                                            min_capacity=64))
+
+
+def lm_serve_full(configs, models, lm_serve, card):
+    """(a) ``launch.serve.serve`` on smollm_360m as published, at both shapes,
+    under sync debug mode "error", then a profiled decode window."""
+    cfg = configs.get(LM_SERVE_ARCH)
+    print(f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads of {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
+          f"{cfg.vocab_padded}), tied {cfg.tie_embeddings}, {cfg.dtype}, "
+          f"{cfg.param_count():,} parameters")
+    # the libraries' first use (cuBLAS handles, allocator pools) before timing
+    lm_serve.serve(cfg, batch=LM_BATCH, prompt_len=8, gen=2, seed=SEED, device=LM_DEVICE,
+                   verbose=False)
+    _free()
+    for prompt, gen in LM_SERVE_SHAPES:
+        stats = {}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()      # what earlier phases still hold
+        torch.cuda.reset_peak_memory_stats()
+        with _NoSync():
+            toks = lm_serve.serve(cfg, batch=LM_BATCH, prompt_len=prompt, gen=gen, seed=SEED,
+                                  device=LM_DEVICE, stats=stats)
+        peak = torch.cuda.max_memory_allocated() - base
+        check(tuple(toks.shape) == (LM_BATCH, gen + 1), f"serve tokens {tuple(toks.shape)}")
+        check(bool(((toks >= 0) & (toks < cfg.vocab_padded)).all()), "a token out of range")
+        print(f"serve {cfg.name} batch {LM_BATCH} prompt {prompt} gen {gen}: prefill "
+              f"{stats['prefill_ms']:.3f} ms, decode {stats['decode_ms_per_token']:.3f} ms a "
+              f"token, {stats['tokens_per_s']:.1f} tokens/s, peak device bytes {peak:,} "
+              f"(sync debug mode error; {card})")
+        _free()
+    # one short profiled decode window from a 32-token prompt
+    model = models.init_lm(cfg, seed=SEED, device=LM_DEVICE)
+    toks = _lm_tokens(cfg, (LM_BATCH, 32))
+    with torch.no_grad():
+        _, pf_cache = models.prefill(cfg, model, toks)
+        cache = models.init_cache(cfg, LM_BATCH, 32 + 4 * LM_PROFILE_STEPS + 1, device=LM_DEVICE)
+        box = [toks[:, -1:], torch.full((), 32, dtype=torch.int32, device=LM_DEVICE),
+               [{k: lm_serve._place(c[k], p[k]) for k in c} for c, p in zip(cache, pf_cache)]]
+
+    def step(_):
+        logits, box[2] = models.decode_step(cfg, model, box[2], box[0], box[1])
+        box[0] = torch.argmax(logits, dim=-1)[:, None]
+        box[1] = box[1] + 1
+
+    print(f"CUT: the decode profile reads {LM_PROFILE_STEPS} steps a window (cut from 16)")
+    _profile(step, LM_PROFILE_STEPS, f"{cfg.name} decode, batch {LM_BATCH} from prompt 32, a "
+                                     f"step a token of every prompt ({card})")
+    del model, box, cache, pf_cache
+    _free()
+
+
+def lm_decode_vs_full(configs, models, lm_serve, card):
+    """(b) decode step by step against one full forward, float32."""
+    for arch, (depth, n_pre, n) in LM_DECODE_CHECKS.items():
+        cfg = _no_drop(_lm_cfg(configs, arch, depth, dtype="float32"))
+        batch = 1 if n_pre else LM_BATCH
+        model = models.init_lm(cfg, seed=SEED, device=LM_DEVICE)
+        toks = _lm_tokens(cfg, (batch, n_pre + n))
+        cache = models.init_cache(cfg, batch, n_pre + n + 1, device=LM_DEVICE)
+        steps = []
+        with torch.no_grad():
+            full, _ = models.forward(cfg, model, {"tokens": toks})
+            if n_pre:
+                last, pf_cache = models.prefill(cfg, model, toks[:, :n_pre])
+                cache = [{k: lm_serve._place(c[k], p[k]) for k in c}
+                         for c, p in zip(cache, pf_cache)]
+                steps.append(last)
+        pos = torch.full((), n_pre, dtype=torch.int32, device=LM_DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _NoSync():
+            for t in range(n_pre, n_pre + n):
+                logits, cache = models.decode_step(cfg, model, cache, toks[:, t:t + 1], pos)
+                steps.append(logits)
+                pos = pos + 1
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        full = full[:, max(n_pre - 1, 0):]
+        err = float((full - torch.stack(steps, 1)).abs().max())
+        scale = float(full.abs().max())
+        what = f"{n} tokens decoded one by one"
+        if n_pre:
+            w = min(cfg.sliding_window or n_pre + n + 1, n_pre + n + 1)
+            what = (f"{n_pre} tokens prefilled (the last position checked) into a ring of {w} "
+                    f"slots, then {n} decoded past the window (the ring wrapped at every step)")
+        print(f"decode vs full {arch} fp32, {cfg.n_layers} layers, batch {batch}, {what}: "
+              f"max |err| {err:.3e} against tolerance {LM_DECODE_TOL} (logits up to "
+              f"{scale:.3f}); {secs / n * 1e3:.3f} ms a decode step ({card})")
+        check(err < LM_DECODE_TOL, f"{arch} decode parts from the full forward by {err}")
+        del model, full, steps, cache
+        _free()
+
+
+def lm_card_vs_cpu(configs, models, convert, lm_serve, card):
+    """(c) smollm_360m at full width, depth 2, fp32: the card against the
+    port's CPU path on the same weights, prefill and decode."""
+    cfg = _lm_cfg(configs, LM_SERVE_ARCH, 2, dtype="float32")
+    model = models.init_lm(cfg, seed=SEED, device=LM_DEVICE)
+    cpu_model = convert.lm_params_from_numpy(cfg, convert.lm_params_to_numpy(model), device="cpu")
+    toks = _lm_tokens(cfg, (LM_BATCH, 32))
+    card_logits = []
+    out = lm_serve.generate(cfg, model, toks, LM_CPU_STEPS, logits=card_logits).cpu()
+    # the CPU decodes the card's tokens, so both see the same inputs
+    with torch.no_grad():
+        last, pf_cache = models.prefill(cfg, cpu_model, toks.cpu())
+        cache = models.init_cache(cfg, LM_BATCH, 32 + LM_CPU_STEPS + 1, device="cpu")
+        cache = [{k: lm_serve._place(c[k], p[k]) for k in c} for c, p in zip(cache, pf_cache)]
+        cpu_logits = [last]
+        for i in range(LM_CPU_STEPS):
+            last, cache = models.decode_step(cfg, cpu_model, cache, out[:, i:i + 1], 32 + i)
+            cpu_logits.append(last)
+    card_l = torch.stack(card_logits, 1).cpu()
+    cpu_l = torch.stack(cpu_logits, 1)
+    scale = max(1.0, float(cpu_l.abs().max()))
+    err = float((card_l - cpu_l).abs().max())
+    cpu_tok = torch.argmax(cpu_l, dim=-1)
+    parted = (cpu_tok != out.long()).nonzero().tolist()
+    top2 = torch.topk(cpu_l, 2, dim=-1).values
+    gaps = [float(top2[b, i, 0] - top2[b, i, 1]) for b, i in parted]
+    print(f"card vs CPU {cfg.name} fp32, {cfg.n_layers} layers, batch {LM_BATCH}, prompt 32, "
+          f"{LM_CPU_STEPS} decode steps: max |err| {err:.3e} against {LM_CPU_TOL} x logits' "
+          f"scale {scale:.3f}; greedy tokens equal {not parted} (parted at {parted}, top-2 gaps "
+          f"{gaps}) ({card})")
+    check(err <= LM_CPU_TOL * scale, f"card against CPU {err}")
+    check(all(g < LM_CPU_TOL * scale for g in gaps), "a greedy token parts off a near-tie")
+    del model, cpu_model
+    _free()
+
+
+def lm_families(configs, models, lm_serve, card):
+    """(d) every family once at its published width in bf16."""
+    for arch, depth in LM_FAMILIES.items():
+        cfg = _lm_cfg(configs, arch, depth)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = models.init_lm(cfg, seed=SEED, device=LM_DEVICE)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        label = (f"family {arch} bf16, {cfg.n_layers} layers{' and the MTP block' * cfg.mtp_depth}"
+                 f", d {cfg.d_model}, {n_params:,} parameters (drawn in {init_s:.3f} s)")
+        if cfg.is_encoder:
+            gen = torch.Generator(device=LM_DEVICE)
+            gen.manual_seed(SEED)
+            frames = torch.randn((LM_BATCH, 32, cfg.frame_dim), generator=gen, device=LM_DEVICE)
+            models.encode_step(cfg, model, {"frames": frames})        # first use of the shapes
+            logits, secs = _timed(lambda: models.encode_step(cfg, model, {"frames": frames}))
+            check(tuple(logits.shape) == (LM_BATCH, 32, cfg.vocab_padded), "encoder shape")
+            check(bool(torch.isfinite(logits.float()).all()), f"{arch} logits not finite")
+            print(f"{label}: encode_step of {LM_BATCH}x32 frames of {cfg.frame_dim} "
+                  f"{secs * 1e3:.3f} ms, logits {tuple(logits.shape)} finite, peak device bytes "
+                  f"{torch.cuda.max_memory_allocated() - base:,} ({card})")
+        shapes = () if cfg.is_encoder else LM_FAMILY_SHAPES.get(arch, ((32, 16),))
+        for prompt, gen in shapes:
+            toks = _lm_tokens(cfg, (LM_BATCH, prompt))
+            logits, timings = [], {}
+            with _NoSync():
+                out = lm_serve.generate(cfg, model, toks, gen, timings=timings, logits=logits)
+            logits = torch.stack(logits, 1)
+            check(tuple(logits.shape) == (LM_BATCH, gen + 1, cfg.vocab_padded),
+                  f"{arch} logits {tuple(logits.shape)}")
+            check(bool(torch.isfinite(logits.float()).all()), f"{arch} logits not finite")
+            check(bool(((out >= 0) & (out < cfg.vocab_padded)).all()), f"{arch} token range")
+            print(f"{label}: prompt {prompt} gen {gen} batch {LM_BATCH}: prefill "
+                  f"{timings['prefill_s'] * 1e3:.3f} ms, decode "
+                  f"{timings['decode_s'] / gen * 1e3:.3f} ms a token, logits "
+                  f"{tuple(logits.shape)} finite, tokens in [0, {cfg.vocab_padded}), peak device "
+                  f"bytes {torch.cuda.max_memory_allocated() - base:,} ({card})")
+        del model
+        _free()
+
+
+def lm_budgeted_kv(kv, default_table, card):
+    """(e) the budgeted KV cache at (a)'s KV width: merge and evict side by
+    side against the exact cache, appends under sync debug mode "error"."""
+    table = default_table().to(LM_DEVICE)
+    b, h, d, w, n = LM_BATCH, KV_HEADS, KV_HEAD_DIM, KV_BUDGET, KV_APPENDS
+    gamma, scale = 1.0 / (2.0 * d), 1.0 / d ** 0.5
+    rng = np.random.default_rng(SEED)
+    center = np.sin(np.arange(d) * 0.1 + np.arange(n)[:, None] * 0.02)          # drifting keys
+    ks = torch.from_numpy((center[:, None, None, None, :]
+                           + 0.3 * rng.standard_normal((n, b, 1, h, d))).astype(np.float32))
+    vs = torch.from_numpy(rng.standard_normal((n, b, 1, h, d)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((b, 1, h, d)).astype(np.float32)).to(LM_DEVICE)
+    ks, vs = ks.to(LM_DEVICE), vs.to(LM_DEVICE)
+    fk, fv = ks[:, :, 0].transpose(0, 1), vs[:, :, 0].transpose(0, 1)           # (B, T, H, d)
+    probs = torch.softmax(torch.einsum("bqhd,bwhd->bhqw", q, fk) * scale, dim=-1)
+    exact = torch.einsum("bhqw,bwhd->bqhd", probs, fv)
+    errs = {}
+    for policy in ("merge", "evict"):
+        st = kv.init_kv_state(b, w, h, d, torch.float32, device=LM_DEVICE)
+        spans = []
+        for lo, hi in ((0, w), (w, n)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _NoSync():
+                for i in range(lo, hi):
+                    st = kv.kv_append(st, ks[i], vs[i], gamma, table, policy=policy)
+            torch.cuda.synchronize()
+            spans.append((time.perf_counter() - t0) / (hi - lo) * 1e6)
+        check(st.count == w, f"{policy}: count {st.count}")
+        out = kv.kv_attend(st, q, scale)
+        errs[policy] = float(torch.linalg.norm(out - exact) / torch.linalg.norm(exact))
+        print(f"budgeted KV {policy}: batch {b}, {h} heads of {d}, budget {w}, {n} appends "
+              f"(sync debug mode error): {spans[0]:.2f} us an append below the budget, "
+              f"{spans[1]:.2f} at it; attention relative error {errs[policy]:.4f} against the "
+              f"exact cache of {n} ({card})")
+    print(f"budgeted KV merge {errs['merge']:.4f} <= evict {errs['evict']:.4f}: "
+          f"{errs['merge'] <= errs['evict']}")
+    check(errs["merge"] <= errs["evict"], f"merging lost to eviction: {errs}")
+    run_example("torch_budgeted_kv_serve", [])
+
+
+def phase_lm(card):
+    from repro_torch import configs, convert, models
+    from repro_torch.core import budgeted_kv
+    from repro_torch.core.lookup import default_table
+    from repro_torch.launch import serve as lm_serve
+
+    print(card)
+    t0 = time.perf_counter()
+    lm_serve_full(configs, models, lm_serve, card)
+    t1 = time.perf_counter()
+    lm_decode_vs_full(configs, models, lm_serve, card)
+    t2 = time.perf_counter()
+    lm_card_vs_cpu(configs, models, convert, lm_serve, card)
+    t3 = time.perf_counter()
+    lm_families(configs, models, lm_serve, card)
+    t4 = time.perf_counter()
+    lm_budgeted_kv(budgeted_kv, default_table, card)
+    t5 = time.perf_counter()
+    print(f"phase 20 seconds: (a) {t1 - t0:.3f}, (b) {t2 - t1:.3f}, (c) {t3 - t2:.3f}, "
+          f"(d) {t4 - t3:.3f}, (e) {t5 - t4:.3f}")
 
 
 def main() -> int:
@@ -3759,6 +4103,8 @@ def main() -> int:
         dist_counts = phase_distributed(core, mc, ops, data, mc_data, fused_runs["c"], card)
     with Phase("19 examples"):
         phase_examples(card)
+    with Phase("20 LM serving"):
+        phase_lm(card)
 
     # launches on the main paths: the binary runs of phase 4 (rbf_matrix,
     # merge_pick, gss_pick, and merge_scores and gss, now 0) and the

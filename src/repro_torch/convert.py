@@ -6,6 +6,13 @@ example ``{k: np.asarray(v) for k, v in state._asdict().items()}``) and
 decides the same way in the other.  bf16 leaves travel as float32 (numpy
 has no bf16): widening is exact, and ``state_from_numpy`` narrows to the
 dtype asked for.
+
+The language models travel the same way: ``lm_params_from_numpy`` takes the
+reference's params tree (nested dicts and lists of numpy arrays, as
+``repro.models.init_lm`` builds it) and fills an ``LM``, unstacking the
+``body`` group axis into layer ``prefix + g * unit + j``;
+``lm_cache_from_numpy`` does the same for a cache, ``kv_state_from_numpy``
+for a budgeted KV cache; the ``*_to_numpy`` functions go back.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import numpy as np
 import torch
 
 from .core.bsgd import SVMState, resolve_device
+from .core.budgeted_kv import KVBudgetState
 from .core.lookup import MergeLookupTable
 
 
@@ -46,3 +54,135 @@ def table_from_numpy(h, wd) -> MergeLookupTable:
     """A ``MergeLookupTable`` (float32, on the CPU) from the h and WD_norm arrays."""
     return MergeLookupTable(h_table=_from_numpy(h).to(torch.float32),
                             wd_table=_from_numpy(wd).to(torch.float32))
+
+
+def _flat(tree, prefix=""):
+    """{dotted name: leaf} of a tree of dicts and lists."""
+    items = tree.items() if isinstance(tree, Mapping) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        name = f"{prefix}{k}"
+        if isinstance(v, (Mapping, list, tuple)):
+            out.update(_flat(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def _nest(flat: Mapping[str, np.ndarray]) -> dict:
+    """The inverse of ``_flat`` for dict-only trees."""
+    out: dict = {}
+    for name, leaf in flat.items():
+        *path, last = name.split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return out
+
+
+def _layer_names(cfg, flat: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """The reference's ``prefix``/``body`` leaves renamed ``layers.<i>.*``."""
+    pref, unit = cfg.prefix_layers, cfg.scan_unit
+    out = {}
+    for name, leaf in flat.items():
+        head, _, rest = name.partition(".")
+        if head == "prefix":
+            out[f"layers.{rest}"] = leaf
+        elif head == "body":
+            j, _, rest = rest.partition(".")
+            for g in range(np.shape(leaf)[0]):
+                out[f"layers.{pref + g * unit + int(j[1:])}.{rest}"] = np.asarray(leaf)[g]
+        else:
+            out[name] = leaf
+    return out
+
+
+def _body_names(cfg, flat: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """``layers.<i>.*`` leaves back into the reference's ``prefix`` list and
+    stacked ``body`` groups."""
+    pref, unit = cfg.prefix_layers, cfg.scan_unit
+    out, body = {}, {}
+    for name, leaf in flat.items():
+        head, _, rest = name.partition(".")
+        if head != "layers":
+            out[name] = leaf
+            continue
+        i, _, rest = rest.partition(".")
+        i = int(i)
+        if i < pref:
+            out[f"prefix.{i}.{rest}"] = leaf
+        else:
+            g, j = divmod(i - pref, unit)
+            body.setdefault(f"body.l{j}.{rest}", {})[g] = leaf
+    for name, groups in body.items():
+        out[name] = np.stack([groups[g] for g in range(len(groups))])
+    tree = _nest(out)
+    if "prefix" in tree:
+        tree["prefix"] = [tree["prefix"][str(i)] for i in range(pref)]
+    return tree
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return (t.float() if t.dtype == torch.bfloat16 else t).detach().cpu().numpy()
+
+
+def lm_params_from_numpy(cfg, params, *, device=None):
+    """An ``LM`` on ``device`` (default the card) holding the reference's
+    params tree ``params`` (numpy leaves; float32 leaves narrow to the
+    parameter's dtype).  Every parameter must be given, and nothing else."""
+    from .models.lm import LM
+
+    dev = resolve_device(device)
+    model = LM(cfg, dev)
+    flat = _layer_names(cfg, _flat(params))
+    names = {name for name, _ in model.named_parameters()}
+    if set(flat) != names:
+        raise ValueError(f"params tree does not match {cfg.name}: missing "
+                         f"{sorted(names - set(flat))}, unknown {sorted(set(flat) - names)}")
+    with torch.no_grad():
+        for name, leaf in flat.items():
+            p = model.get_parameter(name)
+            src = _from_numpy(leaf)
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(src.shape)} against {tuple(p.shape)}")
+            p.copy_(src.to(dev))
+    return model
+
+
+def lm_params_to_numpy(model) -> dict:
+    """The reference's params tree of ``model`` (bf16 as float32)."""
+    flat = {name: _numpy(p) for name, p in model.named_parameters()}
+    return _body_names(model.cfg, flat)
+
+
+def lm_cache_from_numpy(cfg, cache, *, device=None) -> list:
+    """The reference's cache tree (``{"prefix": [...], "body": {...}}`` with
+    ``{"mixer": {...}}`` a layer) as the port's list of per-layer dicts."""
+    dev = resolve_device(device)
+    flat = _layer_names(cfg, _flat(cache))
+    layers: list[dict] = [{} for _ in range(cfg.n_layers)]
+    for name, leaf in flat.items():
+        _, i, mixer, key = name.split(".")
+        layers[int(i)][key] = _from_numpy(leaf).to(dev)
+    return layers
+
+
+def lm_cache_to_numpy(cfg, cache) -> dict:
+    """The port's cache as the reference's tree (bf16 as float32)."""
+    flat = {f"layers.{i}.mixer.{k}": _numpy(t) for i, entry in enumerate(cache)
+            for k, t in entry.items()}
+    return _body_names(cfg, flat)
+
+
+def kv_state_from_numpy(arrays: Mapping[str, np.ndarray], *, device=None) -> KVBudgetState:
+    """A ``KVBudgetState`` from the reference's ``k``, ``v`` and ``count``."""
+    dev = resolve_device(device)
+    return KVBudgetState(k=_from_numpy(arrays["k"]).to(dev), v=_from_numpy(arrays["v"]).to(dev),
+                         count=int(arrays["count"]))
+
+
+def kv_state_to_numpy(state: KVBudgetState) -> dict[str, np.ndarray]:
+    """``{"k", "v", "count"}`` as the reference holds them (count int32)."""
+    return {"k": _numpy(state.k), "v": _numpy(state.v),
+            "count": np.asarray(state.count, np.int32)}

@@ -1,34 +1,166 @@
-"""Serving driver: the budgeted SVM as a request server (``--arch svm_bsgd``).
+"""Serving: language-model prefill and decode, and the budgeted SVM
+as a request server.
 
-The ``--arch svm_bsgd`` arm of ``repro.launch.serve``: ``serve_svm`` loads a
-checkpoint in ``repro.checkpoint``'s format (``--model``; one the JAX
-package wrote serves as well) or trains a small in-process model, pushes a
-ragged request trace through a warmed ``core.predict.BatchQueue`` and
-checks the queue's labels bit for bit against one direct ``predict_labels``
-call on every run.  ``--bank-dtype bfloat16`` serves the bf16 bank.
+Two arms, as ``repro.launch.serve``:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch svm_bsgd --smoke
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch svm_bsgd \\
-        --model ckpts/run1 --gamma 0.5 --bank-dtype bfloat16
+  * language-model archs (``--arch smollm_360m`` and the other nine of
+    ``configs.ARCH_NAMES``): ``serve`` draws seeded weights and prompt
+    tokens, prefills, places the prefill cache at the start of a decode cache
+    of ``prompt_len + gen + 1`` positions (a ring of the window for
+    sliding-window archs) and decodes greedily, the argmax on the card and no
+    host read a token (``generate``); it prints the prefill and decode times.
+    ``--smoke`` serves the architecture's reduced config.  The encoder
+    (``hubert_xlarge``) has no decode step and is refused: serve it with
+    ``repro_torch.models.encode_step``.
 
-``--live`` is train-while-serve (``serve_svm_live``): a background
-``fit_multiclass_stream`` publishes snapshots into a ``ModelBank`` while an
-``AsyncBatchQueue`` serves a request trace over it; ``--faults SEED`` adds the
-chaos drill (retries, quarantine, the finite guard, a supervised restart from
-a checkpoint).
+        PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m
+        PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m --smoke \\
+            --batch 4 --prompt-len 32 --gen 32 --device cpu
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch svm_bsgd --smoke --live
+  * ``--arch svm_bsgd``: ``serve_svm`` loads a checkpoint in
+    ``repro.checkpoint``'s format (``--model``; one the JAX package wrote
+    serves as well) or trains a small in-process model, pushes a ragged
+    request trace through a warmed ``core.predict.BatchQueue`` and checks the
+    queue's labels bit for bit against one direct ``predict_labels`` call on
+    every run.  ``--bank-dtype bfloat16`` serves the bf16 bank.
 
-It runs on the card.  ``--device cpu`` runs it on the host (the CPU tests
-use it).  The language-model arms are not ported yet and raise
-``NotImplementedError``.
+        PYTHONPATH=src python -m repro_torch.launch.serve --arch svm_bsgd --smoke
+        PYTHONPATH=src python -m repro_torch.launch.serve --arch svm_bsgd \\
+            --model ckpts/run1 --gamma 0.5 --bank-dtype bfloat16
+
+    ``--live`` is train-while-serve (``serve_svm_live``): a background
+    ``fit_multiclass_stream`` publishes snapshots into a ``ModelBank`` while
+    an ``AsyncBatchQueue`` serves a request trace over it; ``--faults SEED``
+    adds the chaos drill (retries, quarantine, the finite guard, a supervised
+    restart from a checkpoint).
+
+        PYTHONPATH=src python -m repro_torch.launch.serve --arch svm_bsgd --smoke --live
+
+Both arms run on the card.  ``--device cpu`` runs them on the host (the CPU
+tests use it).
 """
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 import torch
+
+
+def _wait(dev: torch.device) -> None:
+    """Wait for the card at a timing boundary.  The wait is deliberate, so
+    it is made with the sync debug mode off (a caller may run the decode loop
+    under ``torch.cuda.set_sync_debug_mode("error")``)."""
+    if dev.type == "cuda":
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            torch.cuda.synchronize(dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+
+def _place(dst, src):
+    """The prefill cache's tensor ``src`` at offset 0 of the decode cache's
+    ``dst`` (the reference's ``place``): ``src`` itself where the shapes
+    agree.  A prefill longer than a sliding-window ring does not fit."""
+    if src.shape == dst.shape:
+        return src
+    if src.dim() != dst.dim() or src.shape[0] != dst.shape[0]:
+        return dst
+    if any(a > b for a, b in zip(src.shape, dst.shape)):
+        raise ValueError(f"the prefill cache {tuple(src.shape)} does not fit the decode cache "
+                         f"{tuple(dst.shape)}: a prompt longer than the sliding window")
+    dst[tuple(slice(0, n) for n in src.shape)] = src.to(dst.dtype)
+    return dst
+
+
+def _cache_compatible(cache, pf_cache) -> bool:
+    """Whether the prefill cache has the decode cache's structure."""
+    return (pf_cache is not None and len(pf_cache) == len(cache)
+            and all(a.keys() == b.keys() for a, b in zip(cache, pf_cache)))
+
+
+def generate(cfg, model, tokens, gen: int, *, greedy: bool = True, timings: dict | None = None,
+             logits: list | None = None):
+    """Prefill ``tokens`` (B, P) and decode ``gen`` tokens greedily.
+
+    The decode cache holds ``P + gen + 1`` positions with the prefill cache
+    placed at 0; the position is a 0-d tensor on the model's device and the
+    argmax stays there, so the loop reads nothing from the device.  Returns
+    the (B, gen + 1) tokens: the prefill's argmax (the prompt's last token
+    when not ``greedy``) and each step's.  ``timings`` receives
+    ``prefill_s`` and ``decode_s`` (host clock, the card waited for at both
+    ends); ``logits`` receives the prefill's last logits and each step's
+    (B, V), left on the device."""
+    from ..models import decode_step, init_cache, prefill
+
+    dev = tokens.device
+    batch, prompt_len = tokens.shape
+    with torch.no_grad():
+        _wait(dev)
+        t0 = time.perf_counter()
+        last, pf_cache = prefill(cfg, model, tokens)
+        _wait(dev)
+        t_prefill = time.perf_counter() - t0
+
+        cache = init_cache(cfg, batch, prompt_len + gen + 1, device=dev)
+        compatible = _cache_compatible(cache, pf_cache)
+        if compatible:
+            cache = [{k: _place(c[k], p[k]) for k in c} for c, p in zip(cache, pf_cache)]
+        cur = (torch.argmax(last, dim=-1)[:, None].to(torch.int32) if greedy
+               else tokens[:, -1:])
+        out, seen = [cur], [last]
+        pos = torch.full((), prompt_len if compatible else 0, dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        for _ in range(gen):
+            last, cache = decode_step(cfg, model, cache, cur, pos)
+            cur = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
+            out.append(cur)
+            seen.append(last)
+            pos = pos + 1
+        _wait(dev)
+        t_decode = time.perf_counter() - t0
+    if timings is not None:
+        timings.update(prefill_s=t_prefill, decode_s=t_decode)
+    if logits is not None:
+        logits.extend(seen)
+    return torch.cat(out, dim=1)
+
+
+def serve(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 32, seed: int = 0,
+          greedy: bool = True, verbose: bool = True, device=None, stats: dict | None = None):
+    """Serve a language model: seeded weights (``models.init_lm``) and prompt
+    tokens (ids below ``vocab_size``, from a ``torch.Generator`` on the device
+    seeded with ``seed``), then ``generate``; nothing is copied from the host,
+    so the whole call runs under ``torch.cuda.set_sync_debug_mode("error")``.  Returns the (batch, gen + 1) tokens; ``stats`` receives
+    ``prefill_ms``, ``decode_ms_per_token`` and ``tokens_per_s`` (batch
+    tokens a second of decode)."""
+    from ..core import resolve_device
+    from ..models import init_lm
+
+    if cfg.is_encoder:
+        raise ValueError(f"{cfg.name} is an encoder and has no decode step; run it with "
+                         "repro_torch.models.encode_step")
+    dev = resolve_device(device)
+    model = init_lm(cfg, seed=seed, device=dev)
+    draw = torch.Generator(device=dev)
+    draw.manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=draw, device=dev)
+    timings: dict = {}
+    out = generate(cfg, model, toks, gen, greedy=greedy, timings=timings)
+    ms_tok = timings["decode_s"] / max(gen, 1) * 1e3
+    result = dict(prefill_ms=timings["prefill_s"] * 1e3, decode_ms_per_token=ms_tok,
+                  tokens_per_s=batch * gen / timings["decode_s"] if gen else 0.0)
+    if stats is not None:
+        stats.update(result)
+    if verbose:
+        print(f"[serve] {cfg.name} on {dev}: prefill {batch}x{prompt_len}: "
+              f"{result['prefill_ms']:.1f} ms; decode {gen} steps: "
+              f"{timings['decode_s'] * 1e3:.1f} ms ({ms_tok:.2f} ms/tok incl. dispatch, "
+              f"{result['tokens_per_s']:.1f} tokens/s)")
+    return out
 
 
 def serve_svm(*, model_dir: str | None = None, gamma: float = 0.5, bank_dtype: str | None = None,
@@ -260,8 +392,12 @@ def serve_svm_live(*, gamma: float = 0.5, bank_dtype: str | None = None, n_class
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="svm_bsgd or a language model of repro_torch.configs.ARCH_NAMES")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4, help="language models: prompts")
+    ap.add_argument("--prompt-len", type=int, default=32, help="language models: prompt tokens")
+    ap.add_argument("--gen", type=int, default=32, help="language models: tokens decoded")
     ap.add_argument("--model", default=None, metavar="CKPT_DIR",
                     help="svm_bsgd: checkpoint directory to serve (repro.checkpoint format)")
     ap.add_argument("--gamma", type=float, default=0.5,
@@ -291,9 +427,15 @@ def main(argv=None) -> None:
                     help="torch device (default the card; 'cpu' runs on the host)")
     args = ap.parse_args(argv)
     if args.arch != "svm_bsgd":
-        raise NotImplementedError(
-            f"--arch {args.arch}: the language-model serving arms are not ported to "
-            "repro_torch yet (ROADMAP.md Queue 1 item 12)")
+        from ..configs import get, get_smoke
+
+        if args.live or args.model:
+            raise ValueError(f"--arch {args.arch}: --live and --model are svm_bsgd options")
+
+        cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
+        serve(cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen, seed=args.seed,
+              device=args.device)
+        return
     if args.live:
         faults = None
         if args.faults is not None:

@@ -15,8 +15,8 @@ drivers; under ``torchrun`` every rank runs the layout's chunk program
         --arch svm_bsgd --svm-layout slots --stream shards/
 
 It runs on the card; ``--device cpu`` runs it on the host (the CPU tests use
-it).  The language-model arms need the LM scaffold (ROADMAP.md Queue 1 item
-12) and raise ``NotImplementedError``.
+it).  The language-model arms need the training half of the LM scaffold
+(ROADMAP.md Queue 1 item 12) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -154,8 +154,9 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.arch != "svm_bsgd":
         raise NotImplementedError(
-            f"--arch {args.arch}: the language-model training arms are not ported to "
-            "repro_torch yet (ROADMAP.md Queue 1 item 12)")
+            f"--arch {args.arch}: language-model training (train_loop, the optimizer, the "
+            "pipeline) is the training half of ROADMAP.md Queue 1 item 12 and is not ported "
+            "yet; language models serve through repro_torch.launch.serve")
     if not args.stream:
         raise SystemExit("--arch svm_bsgd needs --stream PATH")
     from ..data import ResilienceReport, RetryPolicy

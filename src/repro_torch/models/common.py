@@ -1,0 +1,88 @@
+"""Shared model pieces: the parameter init, norms, RoPE, activations, the loss.
+
+PyTorch counterpart of ``repro.models.common``.  Parameters are drawn as the
+reference draws them (a standard normal truncated to [-2, 2], times
+``scale``, default 1/sqrt(fan_in), in float32, then narrowed to the
+parameter's dtype), from an explicit ``torch.Generator``; the streams are
+torch's, so the values are not the reference's.  Large tensors are drawn a
+block of leading rows at a time, so the float32 temporary stays near
+``DRAW_BLOCK`` elements whatever the tensor's size.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+DRAW_BLOCK = 1 << 28           # float32 elements drawn at once (1 GiB)
+_TRUNC = math.erf(2.0 / math.sqrt(2.0))   # P(|z| < 2) mapped to erf's range
+
+
+def empty_param(shape, dtype, device=None) -> nn.Parameter:
+    """An uninitialised parameter; the modules' ``init_`` draws it."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+def trunc_normal_(t: torch.Tensor, gen: torch.Generator, scale: float | None = None):
+    """Fill ``t`` in place with ``scale`` times a standard normal truncated to
+    [-2, 2], drawn in float32 (inverse erf of a uniform) and then narrowed.
+    The default scale is the reference's 1/sqrt(fan_in), fan_in the first
+    dim (a vector's only dim)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(max(1, t.shape[0] if t.dim() > 1 else t.shape[-1]))
+    rows = t.reshape(-1, *t.shape[1:]) if t.dim() else t.reshape(1)
+    per_row = max(1, math.prod(rows.shape[1:]))
+    for block in rows.split(max(1, DRAW_BLOCK // per_row)):
+        u = torch.empty(block.shape, dtype=torch.float32, device=t.device)
+        u.uniform_(-_TRUNC, _TRUNC, generator=gen)
+        block.copy_(torch.erfinv(u).mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(scale))
+    return t
+
+
+def rms_norm(x, gamma, eps: float = 1e-5):
+    """Normalise in float32, narrow to x's dtype, then multiply by gamma."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(dt) * gamma
+
+
+def rope_angles(positions, dim: int, theta: float):
+    """positions: (...,) -> cos/sin of shape (..., dim//2)."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                             device=positions.device) / dim))
+    ang = positions.float()[..., None] * inv_freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, positions, theta: float):
+    """Rotary embedding, rotate-half on the two halves.  x: (B, S, H, D),
+    positions: (B, S) or (S,)."""
+    b, s, h, d = x.shape
+    if positions.dim() == 1:
+        positions = positions[None, :].expand(b, s)
+    cos, sin = rope_angles(positions, d, theta)           # (B, S, D/2)
+    cos = cos[:, :, None, :]
+    sin = sin[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    """SwiGLU MLP: (x) -> silu(x Wg) * (x Wu) Wd."""
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def softmax_xent(logits, labels, weight=None):
+    """Mean cross-entropy in float32.  logits: (..., V), labels: (...) int."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if weight is None:
+        return torch.mean(nll)
+    w = weight.float()
+    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)

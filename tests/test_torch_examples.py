@@ -16,7 +16,7 @@ import torch
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 SCRIPTS = ["torch_quickstart", "torch_svm_speedup", "torch_svm_multiclass", "torch_svm_stream",
-           "torch_svm_serve_live"]
+           "torch_svm_serve_live", "torch_budgeted_kv_serve"]
 
 
 @pytest.fixture(autouse=True)
@@ -113,3 +113,11 @@ def test_svm_serve_live(faults, capsys):
     versions = re.search(r"versions served: (\{.*\})", out).group(1)
     assert len(ast.literal_eval(versions)) >= 2
     assert ("chaos drill survived" in out) == faults
+
+
+def test_budgeted_kv_serve(capsys):
+    out = _run("torch_budgeted_kv_serve", ["--budget", "16", "--steps", "64", "--batch", "2",
+                                           "--heads", "2", "--head-dim", "16"], capsys)
+    assert re.search(r"t=\s+64 cache= 16/16\s+merge_err=[\d.]+\s+evict_err=[\d.]+", out), out
+    final = re.search(r"final rel err: merge=([\d.]+) evict=([\d.]+)", out)
+    assert final and float(final.group(1)) <= float(final.group(2))

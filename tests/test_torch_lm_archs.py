@@ -1,0 +1,16 @@
+"""Six of the ten architectures at their smoke configs, the port against the
+reference (CPU, float32): the dense GQA decoders, the sliding-window one,
+qk-norm and the encoder.  The cases are ``helpers.torch_lm_archs``'s; the
+MoE, MLA and SSM families are in ``test_torch_lm_archs_moe.py``."""
+import pytest
+from helpers.torch_lm import one_thread  # noqa: F401 (autouse fixture)
+from helpers.torch_lm_archs import *  # noqa: F401,F403 (the shared cases)
+from helpers.torch_lm_archs import make_arch_run
+
+ARCHS = ["hubert_xlarge", "deepseek_coder_33b", "h2o_danube3_4b", "yi_9b", "smollm_360m",
+         "chameleon_34b"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def arch_run(request):
+    return make_arch_run(request.param)
