@@ -49,7 +49,7 @@ non-zero exit code:
      launch a maintenance round, 8 a step, and no ``multi_merge_scores``);
      a ``CUT:`` line says how many steps each run trains.  Every launch
      counter is 0 before each run and read after it;
-  9. the first 500 steps of run (a) on the card and on the CPU in lockstep,
+  9. the first 300 steps of run (a) on the card and on the CPU in lockstep,
      integer state compared step by step (where it first differs, the cause
      must be a near-tie: a margin on either side of 1, or tied event
      scores), then the cache invariants I1-I3 of both;
@@ -73,7 +73,7 @@ non-zero exit code:
      compared step by step (where they first differ, the cause must be a
      near-tie), then the cache invariants of both;
  13. a profiled window of runs (c) and (d) and of the binary fused run;
- 14. 150 more steps of run (b)'s configuration from where run (b) stopped,
+ 14. 100 more steps of run (b)'s configuration from where run (b) stopped,
      on the card, with every maintenance round run twice from the same state,
      through the ``multi_merge_choose`` kernel and through the plain scoring
      and choice (``impl="ref"``): count, sv_x, alpha and kmat equal bit for
@@ -138,7 +138,7 @@ non-zero exit code:
      sweep's ns a coordinate, the chain warp alone (clock64 cycles a
      coordinate) and the chain floor (the dependent instructions of a link
      read from the kernel's SASS, their latencies measured on the card);
-     (b) half a bdca epoch of phase 4's ADULT stand-in (a ``CUT:`` line; the cache,
+     (b) 8,192 steps of a bdca epoch of phase 4's ADULT stand-in (a ``CUT:`` line; the cache,
      ``bdca_C = box_from_lambda(n, 1e-5)``, 2 rounds; ``bdca_ascent`` once a
      step, its gap to the binary fused bsgd run); (c) run (a)'s class axis
      under bdca for one epoch (``bdca_C`` from the 60,000 rows; its gap to
@@ -206,7 +206,32 @@ non-zero exit code:
      64, budget 512, 4,096 appends of a drifting stream, sync debug mode
      "error"), merge and evict side by side against the exact cache (merge's
      relative attention error no larger), µs an append below and at the
-     budget, then ``examples/torch_budgeted_kv_serve.py`` on ``cuda``.
+     budget, then ``examples/torch_budgeted_kv_serve.py`` on ``cuda``;
+ 21. the language-model training path (``launch.train``'s LM arm,
+     ``launch.steps``, ``train/``, ``launch.elastic``; no kernel of the port
+     lies on it, as no Pallas kernel lies on the reference's), every time
+     and byte count beside the card's name and power limit: (a)
+     ``train_loop`` on ``smollm_360m`` as published (bf16, remat on, seeded
+     random weights) at batch 4 x 4,096 (``train_4k``'s length; its global
+     batch of 256 is a pod's, a ``CUT:`` line) for 6 AdamW steps at the
+     CLI's defaults with a checkpoint at the end: ms a step after the
+     first, tokens/s, model TFLOP/s beside the dense bf16 peak, peak device
+     bytes, the losses, every loss and parameter finite and every parameter
+     moved; one more step under sync debug mode "error", then profiled
+     (device busy µs, idle share, kernels a step); peak bytes of a step at
+     seq 1,024 with remat on and off (on must be lower); (b) full width at
+     depth 2, fp32, batch 2 x 128: the card's loss and every gradient
+     against the port's CPU path on the same weights (1e-5 relative, 1e-4
+     of each leaf's scale), then one AdamW update on both from the same
+     gradients (1e-6); (c) ``examples/torch_train_lm.py`` on ``cuda`` at its
+     defaults (its own check: the loss drops by 0.5); (d) ``launch.elastic``
+     with a fault at step 12 of 24 (``restarts 1``, the resumed losses
+     within 2e-3 of an uninterrupted run's) and ``--deadline`` below a
+     step's time (exit 75, a checkpoint on disk); (e) two ranks sharing the
+     card under gloo: one data-parallel step of (b)'s model at batch 8 split
+     4/4 against one process (1e-5), ``compressed_psum`` of the ranks'
+     gradients within one quantization step of their mean, and
+     ``pipeline_forward`` over 2 stages against the sequential loop (1e-4).
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 It imports nothing from the JAX package.  Without a CUDA device, or without
@@ -216,6 +241,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -236,7 +263,7 @@ PROFILE_STEPS = 100               # cut from 300 for phases 18 and 19 (a CUT: li
 # the class axis: LIBSVM multi-class mnist's widths and split
 MC_CLASSES, MC_DIM, MC_TRAIN, MC_TEST = 10, 780, 60_000, 10_000
 MC_GAMMA, MC_LAMBDA, MC_BUDGET, MC_BATCH = 2.0 ** -11, 1e-5, 500, 8
-MC_REPLAY_STEPS = 500            # cut from 1,000 for phases 18 and 19 (a CUT: line)
+MC_REPLAY_STEPS = 300            # cut from 1,000 for phases 18 to 21 (a CUT: line)
 # profiled steps per class-axis run: run (b) launches ~1,500 kernels a step,
 # which the profiler's bookkeeping makes slow to read back
 MC_PROFILE_STEPS = {"a": 40, "b": 8, "c": 200, "d": 200}
@@ -250,7 +277,7 @@ MC_RUNS = {"a": "merge_event engine", "b": "multi-merge", "c": "fused step, merg
            "d": "fused step, multi-merge"}
 LOCKSTEP_STEPS = 1_000
 FUSED_PROFILE_STEPS = 1_000
-CHOOSE_LOCKSTEP_STEPS = 150      # cut from 300 for phases 18 and 19 (a CUT: line)
+CHOOSE_LOCKSTEP_STEPS = 100      # cut from 300 for phases 18 to 21 (a CUT: line)
 # rbf_matrix's checked shapes (n, m, d): the binary path's margin and kappa
 # rows, decision values, run (a)'s margin rows (a minibatch of 8 against the
 # 10 x 508 class bank) and a minibatch of 32 against it, and three ragged
@@ -2770,9 +2797,10 @@ BDCA_PROFILE_STEPS = {"b": 300, "c": 40}
 BDCA_ACC_FLOOR = {"b": 0.60, "c": 0.50}
 BDCA_LOCKSTEP_STEPS = 600        # cut from 1,000 for phases 18 and 19 (a CUT: line);
                                  # its first merge event comes near step 500
-# (b)'s steps: cut from the whole epoch (26,049) for phases 18 and 19 (a CUT:
-# line); on the card its accuracy is 0.7024 there against 0.6594 at the end
-BDCA_BINARY_STEPS = 13_025
+# (b)'s steps: cut from the whole epoch (26,049) for phases 18 to 21 (a CUT:
+# line); on the card its accuracy is 0.7024 at 13,025 steps against 0.6594 at
+# the end; the port's CPU path reaches 0.6956 at 8,192 (0.6660 at 6,144)
+BDCA_BINARY_STEPS = 8_192
 BDCA_ROW_GAP = 0.1        # (d): SV rows further apart than this hold other points
 BDCA_STREAM_ROWS = 2 * STREAM_CHUNK_ROWS     # (e): two chunks of run (c)'s rows
 
@@ -3672,13 +3700,13 @@ def phase_distributed(core, mc, ops, data, mc_data, run_c, card):
 
 # each script's arguments on the card, and what they cut (None: the script's defaults)
 EXAMPLES = {
-    "torch_quickstart": (["--n", "1000", "--epochs", "1"],
-                         "1,000 of its 3,000 rows and 1 of its 3 epochs a method"),
-    "torch_svm_speedup": (["--n", "6000"], "6,000 of its 40,000 rows"),
+    "torch_quickstart": (["--n", "600", "--epochs", "1"],
+                         "600 of its 3,000 rows and 1 of its 3 epochs a method"),
+    "torch_svm_speedup": (["--n", "2000"], "2,000 of its 40,000 rows"),
     "torch_svm_multiclass": (["--n", "2000", "--skip-loop-baseline"],
                              "2,000 of its 6,000 rows and no loop-over-classes baseline"),
-    "torch_svm_stream": (["--n", "5000", "--chunk-rows", "1000"],
-                         "5,000 of its 8,192 rows in chunks of 1,000 (of 1,024)"),
+    "torch_svm_stream": (["--n", "3000", "--chunk-rows", "500"],
+                         "3,000 of its 8,192 rows in chunks of 500 (of 1,024)"),
     "torch_svm_serve_live": (["--n", "2048", "--epochs", "1"],
                              "2,048 of its 4,096 rows and 1 of its 2 epochs"),
 }
@@ -3767,10 +3795,11 @@ def _free() -> None:
     torch.cuda.empty_cache()
 
 
-def _lm_tokens(cfg, shape, seed: int = SEED):
-    gen = torch.Generator(device=LM_DEVICE)
+def _lm_tokens(cfg, shape, seed: int = SEED, device=None):
+    device = device or LM_DEVICE
+    gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return torch.randint(0, cfg.vocab_size, shape, generator=gen, device=LM_DEVICE)
+    return torch.randint(0, cfg.vocab_size, shape, generator=gen, device=device)
 
 
 def _lm_cfg(configs, arch: str, depth=None, **kw):
@@ -4025,6 +4054,358 @@ def phase_lm(card):
           f"(d) {t4 - t3:.3f}, (e) {t5 - t4:.3f}")
 
 
+# Phase 21: language-model training
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 4096, 6      # train_4k's length
+LM_REMAT_SEQ = 1024              # the remat on / off peak-bytes comparison
+LM_GRAD_TOL, LM_LOSS_TOL, LM_UPDATE_TOL = 1e-4, 1e-5, 1e-6
+LM_CHECK_BATCH, LM_CHECK_SEQ = 2, 128    # (b): card against CPU
+LM_DP_BATCH, LM_DP_TOL = 8, 1e-5         # (e): two ranks, 4 rows each
+LM_PIPE = dict(groups=8, micro=6, rows=4, d=960)   # (e): pipeline_forward
+LM_TRAJ_TOL = 2e-3                       # (d): the reference's resume tolerance
+BF16_PEAK_FLOPS_PER_S = 989e12           # H100 SXM dense bf16 (NVIDIA data sheet)
+
+
+def _train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step (the usual model-FLOPs count:
+    6 N a token for the matmuls of every parameter, the tied head once,
+    and 12 L H hd S a token for attention's two products, full and not
+    causal; remat's second forward is not counted)."""
+    tokens = batch * seq
+    return tokens * (6 * cfg.param_count() + 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim_ * seq)
+
+
+def _lm_batch(cfg, batch: int, seq: int, device=None) -> dict:
+    device = device or LM_DEVICE
+    toks = _lm_tokens(cfg, (batch, seq), device=device)
+    mask = torch.ones((batch, seq), dtype=torch.float32, device=device)
+    mask[:, -1] = 0.0
+    return {"tokens": toks, "labels": torch.roll(toks, -1, 1), "mask": mask}
+
+
+def _lm_grads(lm_models, cfg, model, batch):
+    """``(loss, {name: gradient})`` of ``loss_fn`` by autograd."""
+    params = dict(model.named_parameters())
+    loss = lm_models.loss_fn(cfg, model, batch)
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return loss.detach(), {n: torch.zeros_like(p) if g is None else g
+                           for (n, p), g in zip(params.items(), grads)}
+
+
+def _leaf_err(got, want) -> float:
+    """max |got - want| over the leaf's max |want|, on the host."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _remat_peak(models, steps_mod, optim, cfg, remat: bool) -> int:
+    """Peak device bytes of one AdamW step at ``LM_REMAT_SEQ`` with remat on or off."""
+    cfg = dataclasses.replace(cfg, remat=remat)
+    model = models.init_lm(cfg, seed=SEED, device=LM_DEVICE)
+    opt = optim.AdamW(lr=3e-3)
+    state = opt.init(dict(model.named_parameters()))
+    batch = _lm_batch(cfg, LM_TRAIN_BATCH, LM_REMAT_SEQ)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    steps_mod.make_train_step(cfg, opt)(model, state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del model, state, batch
+    _free()
+    return peak
+
+
+def lm_train_full(configs, models, lm_train, steps_mod, optim, card, tmp: Path):
+    """(a) ``train_loop`` on smollm_360m as published, at train_4k's length."""
+    cfg = configs.get(LM_SERVE_ARCH)
+    print(f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.dtype}, vocab "
+          f"{cfg.vocab_size}, remat {cfg.remat}, {cfg.param_count():,} parameters")
+    print(f"CUT: train_4k's global batch of 256 rows is a pod's; one card trains "
+          f"{LM_TRAIN_BATCH} rows of {LM_TRAIN_SEQ} for {LM_TRAIN_STEPS} steps")
+    model = models.init_lm(cfg, seed=SEED, device=LM_DEVICE)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = lm_train.train_loop(cfg, steps=LM_TRAIN_STEPS, batch_size=LM_TRAIN_BATCH,
+                                  seq_len=LM_TRAIN_SEQ, ckpt_dir=str(tmp / "a"), log_every=1,
+                                  seed=SEED, device=LM_DEVICE, model=model)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    table = cfg.vocab_size ** 2 * 4             # the bigram stream's cumulative table
+    losses = metrics["losses"]
+    check(len(losses) == LM_TRAIN_STEPS and all(np.isfinite(losses)), f"losses {losses}")
+    moved = finite = 0
+    for k, p in model.named_parameters():
+        finite += bool(torch.isfinite(p.float()).all())
+        moved += not torch.equal(p, before[k])
+    n = len(before)
+    check(finite == n and moved == n, f"{finite}/{n} parameters finite, {moved}/{n} moved")
+    ms = metrics["ms_per_step"]
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    flops = _train_flops(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    print(f"train {cfg.name} batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, {LM_TRAIN_STEPS} AdamW "
+          f"steps: {ms:.3f} ms a step after the first, {tokens / ms * 1e3:.1f} tokens/s, "
+          f"model {flops / ms / 1e9:.2f} TFLOP/s ({flops / 1e12:.2f} TFLOP a step) against "
+          f"the dense bf16 peak {BF16_PEAK_FLOPS_PER_S / 1e12:.0f} (share "
+          f"{flops / (ms / 1e3) / BF16_PEAK_FLOPS_PER_S:.4f}); peak device bytes {peak:,} "
+          f"(of them the bigram table {table:,}); losses {[round(x, 6) for x in losses]}; "
+          f"{moved}/{n} parameters moved, all finite; the loop and its checkpoint "
+          f"{wall:.3f} s ({card})")
+    check(os.path.isdir(tmp / "a" / f"step_{LM_TRAIN_STEPS:08d}"), "no checkpoint at the end")
+    shutil.rmtree(tmp / "a")
+    t1 = time.perf_counter()
+    # one more step with a fixed batch: under sync debug "error", then profiled
+    opt = optim.AdamW(lr=3e-3)
+    state = metrics["opt_state"]
+    step_fn = steps_mod.make_train_step(cfg, opt)
+    batch = _lm_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    with _NoSync():
+        state, loss = step_fn(model, state, batch)
+    check(bool(torch.isfinite(loss)), "the step under sync debug mode gave a non-finite loss")
+    print("train step under sync debug mode error: no host read")
+    box = [state]
+
+    def step(_):
+        box[0], _loss = step_fn(model, box[0], batch)
+
+    _profile(step, 1, f"{cfg.name} train step, batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, "
+                      f"remat ({card})")
+    del model, before, box, state, batch, metrics
+    _free()
+    t2 = time.perf_counter()
+    on = _remat_peak(models, steps_mod, optim, cfg, True)
+    off = _remat_peak(models, steps_mod, optim, cfg, False)
+    print(f"remat at batch {LM_TRAIN_BATCH} x {LM_REMAT_SEQ}: peak device bytes of a step "
+          f"{on:,} on, {off:,} off ({off / on:.2f}x) ({card})")
+    print(f"(a) seconds: the loop {wall:.3f}, the extra and profiled steps {t2 - t1:.3f}, remat "
+          f"on and off {time.perf_counter() - t2:.3f}")
+    check(on < off, f"remat did not lower peak bytes: {on} against {off}")
+
+
+def lm_train_card_vs_cpu(configs, models, convert, optim, card):
+    """(b) full width, depth 2, fp32: the card's loss, gradients and one AdamW
+    update against the port's CPU path on the same weights."""
+    cfg = _lm_cfg(configs, LM_SERVE_ARCH, 2, dtype="float32")
+    model = models.init_lm(cfg, seed=SEED, device=LM_DEVICE)
+    cpu_model = convert.lm_params_from_numpy(cfg, convert.lm_params_to_numpy(model), device="cpu")
+    batch = _lm_batch(cfg, LM_CHECK_BATCH, LM_CHECK_SEQ)
+    loss, grads = _lm_grads(models, cfg, model, batch)
+    cpu_loss, cpu_grads = _lm_grads(models, cfg, cpu_model, {k: v.cpu() for k, v in batch.items()})
+    loss_err = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    grad_err = max(_leaf_err(grads[k], cpu_grads[k]) for k in grads)
+    worst = max(grads, key=lambda k: _leaf_err(grads[k], cpu_grads[k]))
+    # one update on both from the CPU's gradients
+    opt = optim.AdamW(lr=optim.cosine_schedule(3e-3, 2, 20))
+    params, cpu_params = dict(model.named_parameters()), dict(cpu_model.named_parameters())
+    state, cpu_state = opt.init(params), opt.init(cpu_params)
+    state = opt.update({k: g.to(LM_DEVICE) for k, g in cpu_grads.items()}, state, params)
+    cpu_state = opt.update(cpu_grads, cpu_state, cpu_params)
+    errs = {f"{what} {k}": _leaf_err(a[k], b[k]) for k in params
+            for what, a, b in (("param", params, cpu_params), ("m", state.m, cpu_state.m),
+                               ("v", state.v, cpu_state.v))}
+    upd = max(errs.values())
+    print(f"train card vs CPU {cfg.name} fp32, {cfg.n_layers} layers, batch {LM_CHECK_BATCH} x "
+          f"{LM_CHECK_SEQ}: loss {float(loss):.6f}, relative error {loss_err:.3e} against "
+          f"{LM_LOSS_TOL}; gradients' worst error {grad_err:.3e} of the leaf's scale ({worst}) "
+          f"against {LM_GRAD_TOL}; one AdamW update, params, m and v {upd:.3e} ({max(errs, key=errs.get)}) "
+          f"against {LM_UPDATE_TOL} ({card})")
+    check(loss_err <= LM_LOSS_TOL, f"loss parts by {loss_err}")
+    check(grad_err <= LM_GRAD_TOL, f"gradient {worst} parts by {grad_err}")
+    check(upd <= LM_UPDATE_TOL, f"the update parts by {upd}")
+    del model, cpu_model, grads, cpu_grads, state, cpu_state
+    _free()
+
+
+def _train_losses(text: str) -> dict:
+    """``{step: loss}`` of the ``[train] step N loss X`` lines (a later line of
+    a step wins: the restarted child's)."""
+    import re
+
+    return {int(m.group(1)): float(m.group(2))
+            for m in re.finditer(r"\[train\] step (\d+) loss ([-\d.]+)", text)}
+
+
+def _module(*argv):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, "-m", *argv], capture_output=True, text=True, env=env,
+                          timeout=EXAMPLE_TIMEOUT_S, cwd=ROOT)
+
+
+def lm_train_drills(configs, lm_train, card, tmp: Path):
+    """(d) the elastic drill and the watchdog on the card."""
+    common = ["--arch", LM_SERVE_ARCH, "--steps", "24", "--ckpt-every", "8", "--log-every",
+              "1", "--device", LM_DEVICE]
+    t0 = time.perf_counter()
+    out = _module("repro_torch.launch.elastic", *common, "--fault-at", "12",
+                  "--ckpt-dir", str(tmp / "elastic"))
+    secs = time.perf_counter() - t0
+    check(out.returncode == 0, f"elastic exited {out.returncode}: {out.stderr[-2000:]}")
+    check("[elastic] done: restarts 1" in out.stdout
+          and "[train] resumed from step 8" in out.stdout, f"elastic: {out.stdout[-2000:]}")
+    resumed = _train_losses(out.stdout)
+    check(sorted(resumed) == list(range(24)), "a step's loss is missing")
+    # the uninterrupted run in this process: the CLI's defaults on the smoke config
+    want = lm_train.train_loop(configs.get_smoke(LM_SERVE_ARCH), steps=24, ckpt_every=8,
+                               ckpt_dir=str(tmp / "whole"), device=LM_DEVICE,
+                               verbose=False)["losses"]
+    diff = max(abs(resumed[s] - want[s]) for s in range(8, 24))
+    print(f"elastic drill on {LM_DEVICE}: {LM_SERVE_ARCH} smoke, 24 steps, checkpoints every 8, a "
+          f"fault at step 12: restarts 1, resumed from step 8; the resumed steps' losses "
+          f"against an uninterrupted run's: max |diff| {diff:.3e} against {LM_TRAJ_TOL} "
+          f"({secs:.3f} s) ({card})")
+    check(diff <= LM_TRAJ_TOL, f"the resumed losses part by {diff}")
+    dog = _module("repro_torch.launch.train", "--arch", LM_SERVE_ARCH, "--smoke", "--steps",
+                  "5", "--deadline", "1e-6", "--ckpt-dir", str(tmp / "dog"), "--device", LM_DEVICE)
+    saved = sorted(p.name for p in (tmp / "dog").glob("step_*"))
+    print(f"watchdog on {LM_DEVICE}: --deadline 1e-6 s: exit {dog.returncode}, checkpoints "
+          f"{saved}, {dog.stdout.count('STRAGGLER')} straggler lines")
+    check(dog.returncode == 75 and saved, f"watchdog: exit {dog.returncode}, {saved}")
+
+
+def _lm_dist_child(rank, world, store, tmp, device):
+    """A rank of phase 21 (e): two ranks on the card under gloo."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch import configs, models
+    from repro_torch.launch import dist as dist_launch
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.train import AdamW, compressed_psum, pipeline_forward
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dist_launch.init(device, rank=rank, world_size=world, init_method=f"file://{store}",
+                           timeout_s=DIST_TIMEOUT_S)
+    group = dist.group.WORLD
+    out = {"backend": dist.get_backend(group)}
+    try:
+        cfg = dataclasses.replace(configs.get(LM_SERVE_ARCH), n_layers=2, dtype="float32")
+        batch = _lm_batch(cfg, LM_DP_BATCH, LM_CHECK_SEQ, dev)
+        runs = {}
+        for name, g in (("ranks", group), ("one", None)):
+            if name == "one" and rank:
+                break
+            model = models.init_lm(cfg, seed=SEED, device=dev)
+            opt = AdamW(lr=3e-3)
+            state = opt.init(dict(model.named_parameters()))
+            fn = steps_mod.make_train_step(cfg, opt, group=g)
+            state, loss = fn(model, state, batch)
+            runs[name] = ({k: t.clone() for k, t in state.m.items()}, float(loss))
+            _sync(dev)                       # a second step, warm, for its time
+            t0 = time.perf_counter()
+            fn(model, state, batch)
+            _sync(dev)
+            runs[name] += (time.perf_counter() - t0,)
+        if rank == 0:
+            (m2, l2, t2), (m1, l1, t1) = runs["ranks"], runs["one"]
+            out.update(loss_err=abs(l2 - l1) / abs(l1), ms_ranks=t2 * 1e3, ms_one=t1 * 1e3,
+                       grad_err=max(_leaf_err(m2[k], m1[k]) for k in m1))
+        del runs
+        # compressed_psum of this rank's own gradients against their exact mean
+        part = {k: v[rank * LM_DP_BATCH // world:(rank + 1) * LM_DP_BATCH // world]
+                for k, v in batch.items()}
+        _, grads = _lm_grads(models, cfg, models.init_lm(cfg, seed=SEED, device=dev), part)
+        mean, _ = compressed_psum(grads, None, group)
+        worst = 0.0
+        for k, g in grads.items():
+            exact = g.float().clone()
+            dist.all_reduce(exact, group=group)
+            exact /= world
+            step = g.float().abs().max().reshape(1)
+            dist.all_reduce(step, op=dist.ReduceOp.MAX, group=group)
+            step = max(float(step) / 127.0, 1e-12 / 127.0)
+            worst = max(worst, float((mean[k] - exact).abs().max()) / step)
+        out["psum_steps"] = worst
+        # pipeline_forward over the ranks against the sequential loop
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        p = LM_PIPE
+        ws = torch.randn((p["groups"], p["d"], p["d"]), generator=gen, device=dev) / p["d"] ** 0.5
+        x = torch.randn((p["micro"], p["rows"], p["d"]), generator=gen, device=dev)
+        body = lambda w, h: torch.tanh(h @ w)          # noqa: E731
+        got = pipeline_forward(body, world, ws, x, group)
+        want = x
+        for i in range(p["groups"]):
+            want = body(ws[i], want)
+        out["pipe_err"] = float((got - want).abs().max())
+    except Exception:
+        import traceback
+
+        out["error"] = traceback.format_exc()
+    finally:
+        (Path(tmp) / f"lm-rank{rank}.json").write_text(json.dumps(out))
+        dist.destroy_process_group()
+
+
+def lm_train_two_ranks(card, tmp: Path):
+    """(e) two ranks sharing the card under gloo: the data-parallel step,
+    ``compressed_psum`` and ``pipeline_forward``."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(_lm_dist_child, args=(2, str(tmp / "lm-store"), str(tmp), LM_DEVICE),
+                             nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + DIST_JOIN_S
+    while not ctx.join(timeout=2.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise RuntimeError(f"phase 21 (e): the ranks did not finish in {DIST_JOIN_S} s")
+    ranks = [json.loads((tmp / f"lm-rank{r}.json").read_text()) for r in range(2)]
+    for r in ranks:
+        check("error" not in r, f"phase 21 (e): {r.get('error')}")
+    r0 = ranks[0]
+    print(f"two ranks on the card ({r0['backend']}): one data-parallel AdamW step of "
+          f"{LM_SERVE_ARCH} at depth 2 (a CUT as in (b)), fp32, batch {LM_DP_BATCH} x "
+          f"{LM_CHECK_SEQ} split 4/4: "
+          f"{r0['ms_ranks']:.3f} ms a warm step on the ranks, {r0['ms_one']:.3f} ms in one "
+          f"process; loss "
+          f"{r0['loss_err']:.3e} and gradients {r0['grad_err']:.3e} of scale against one "
+          f"process (tolerance {LM_DP_TOL}); compressed_psum within "
+          f"{max(r['psum_steps'] for r in ranks):.3f} quantization steps of the exact mean; "
+          f"pipeline_forward over 2 stages ({LM_PIPE}) against the sequential loop "
+          f"{max(r['pipe_err'] for r in ranks):.3e} ({card})")
+    check(r0["backend"] == "gloo", f"two ranks on one card ran {r0['backend']}")
+    check(r0["loss_err"] <= LM_DP_TOL and r0["grad_err"] <= LM_DP_TOL, "the DP step parts")
+    check(all(r["psum_steps"] <= 1.0 for r in ranks), "compressed_psum off by a step")
+    check(all(r["pipe_err"] <= 1e-4 for r in ranks), "pipeline_forward parts")
+
+
+def phase_lm_train(card, build_dir):
+    import tempfile
+
+    from repro_torch import configs, convert, models, train as optim
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as lm_train
+
+    print(card)
+    tmp = Path(tempfile.mkdtemp(prefix="lm-train-", dir=build_dir))
+    try:
+        t0 = time.perf_counter()
+        lm_train_full(configs, models, lm_train, steps_mod, optim, card, tmp)
+        t1 = time.perf_counter()
+        lm_train_card_vs_cpu(configs, models, convert, optim, card)
+        t2 = time.perf_counter()
+        lines = run_example("torch_train_lm", [])
+        check(any(ln.startswith("OK: loss dropped") for ln in lines), "the example's loss")
+        t3 = time.perf_counter()
+        lm_train_drills(configs, lm_train, card, tmp)
+        t4 = time.perf_counter()
+        lm_train_two_ranks(card, tmp)
+        t5 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 21 seconds: (a) {t1 - t0:.3f}, (b) {t2 - t1:.3f}, (c) {t3 - t2:.3f}, "
+          f"(d) {t4 - t3:.3f}, (e) {t5 - t4:.3f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -4105,6 +4486,8 @@ def main() -> int:
         phase_examples(card)
     with Phase("20 LM serving"):
         phase_lm(card)
+    with Phase("21 LM training"):
+        phase_lm_train(card, _build.BUILD_DIR)
 
     # launches on the main paths: the binary runs of phase 4 (rbf_matrix,
     # merge_pick, gss_pick, and merge_scores and gss, now 0) and the

@@ -9,8 +9,10 @@ derive how the reference groups layers into a repeating unit plus a prefix
 (e.g. deepseek-v3's first 3 dense layers); the port's model is one list of
 layers in the same order.
 
-``remat``, ``scan_unroll`` and ``seq_shard_attn`` are settings of the JAX
-package's TPU mesh (rematerialisation, unrolled scans for cost accounting,
+``remat`` recomputes each layer's forward in the backward of a training
+forward (``models.lm.forward``, the reference's ``jax.checkpoint`` of each
+scanned unit).  ``scan_unroll`` and ``seq_shard_attn`` are settings of the
+JAX package's TPU mesh (unrolled scans for cost accounting,
 context-parallel attention).  They stay so that a config compares field by
 field with the reference's; they do nothing on one card.
 """

@@ -12,7 +12,10 @@ reference's params tree (nested dicts and lists of numpy arrays, as
 ``repro.models.init_lm`` builds it) and fills an ``LM``, unstacking the
 ``body`` group axis into layer ``prefix + g * unit + j``;
 ``lm_cache_from_numpy`` does the same for a cache, ``kv_state_from_numpy``
-for a budgeted KV cache; the ``*_to_numpy`` functions go back.
+for a budgeted KV cache, ``opt_state_from_numpy`` for the optimizer's
+state; the ``*_to_numpy`` functions go back.  ``lm_tree`` and ``lm_flat``
+move a dict of tensors by parameter name to the reference's tree layout
+and back (the trainer's checkpoints).
 """
 from __future__ import annotations
 
@@ -82,7 +85,8 @@ def _nest(flat: Mapping[str, np.ndarray]) -> dict:
 
 
 def _layer_names(cfg, flat: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
-    """The reference's ``prefix``/``body`` leaves renamed ``layers.<i>.*``."""
+    """The reference's ``prefix``/``body`` leaves renamed ``layers.<i>.*``
+    (numpy arrays or tensors; a body leaf's groups are views of it)."""
     pref, unit = cfg.prefix_layers, cfg.scan_unit
     out = {}
     for name, leaf in flat.items():
@@ -91,16 +95,17 @@ def _layer_names(cfg, flat: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
             out[f"layers.{rest}"] = leaf
         elif head == "body":
             j, _, rest = rest.partition(".")
-            for g in range(np.shape(leaf)[0]):
-                out[f"layers.{pref + g * unit + int(j[1:])}.{rest}"] = np.asarray(leaf)[g]
+            leaf = leaf if hasattr(leaf, "shape") else np.asarray(leaf)
+            for g in range(leaf.shape[0]):
+                out[f"layers.{pref + g * unit + int(j[1:])}.{rest}"] = leaf[g]
         else:
             out[name] = leaf
     return out
 
 
-def _body_names(cfg, flat: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
+def _body_names(cfg, flat: Mapping[str, np.ndarray], stack=np.stack) -> dict[str, np.ndarray]:
     """``layers.<i>.*`` leaves back into the reference's ``prefix`` list and
-    stacked ``body`` groups."""
+    ``body`` groups joined by ``stack``."""
     pref, unit = cfg.prefix_layers, cfg.scan_unit
     out, body = {}, {}
     for name, leaf in flat.items():
@@ -116,7 +121,7 @@ def _body_names(cfg, flat: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
             g, j = divmod(i - pref, unit)
             body.setdefault(f"body.l{j}.{rest}", {})[g] = leaf
     for name, groups in body.items():
-        out[name] = np.stack([groups[g] for g in range(len(groups))])
+        out[name] = stack([groups[g] for g in range(len(groups))])
     tree = _nest(out)
     if "prefix" in tree:
         tree["prefix"] = [tree["prefix"][str(i)] for i in range(pref)]
@@ -154,6 +159,47 @@ def lm_params_to_numpy(model) -> dict:
     """The reference's params tree of ``model`` (bf16 as float32)."""
     flat = {name: _numpy(p) for name, p in model.named_parameters()}
     return _body_names(model.cfg, flat)
+
+
+def lm_tree(cfg, flat: Mapping, *, stack=torch.stack) -> dict:
+    """``{parameter name: leaf}`` (``model.named_parameters()``'s names) as the
+    reference's params tree: the ``prefix`` list and each scanned unit's
+    layers joined along a leading group dim by ``stack``.  The trainer's
+    checkpoints hold parameters and moments in this layout, as the
+    reference's do."""
+    return _body_names(cfg, flat, stack)
+
+
+def lm_flat(cfg, tree) -> dict:
+    """The reference's params tree (numpy or tensor leaves) as ``{parameter
+    name: leaf}``, each body group a view of its stacked leaf."""
+    return _layer_names(cfg, _flat(tree))
+
+
+def opt_state_from_numpy(cfg, state, *, device=None):
+    """The reference's ``OptState`` (``step``, ``m``, ``v``: a NamedTuple or a
+    dict, numpy leaves) as the port's ``train.optimizer.OptState`` on
+    ``device`` (default the card), moments keyed by parameter name."""
+    from .train.optimizer import OptState
+
+    dev = resolve_device(device)
+    step, m, v = ((state["step"], state["m"], state["v"]) if isinstance(state, Mapping)
+                  else tuple(state))
+
+    def moments(tree):
+        return {k: _from_numpy(a).to(dev) for k, a in lm_flat(cfg, tree).items()}
+
+    return OptState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev),
+                    m=moments(m), v=moments(v))
+
+
+def opt_state_to_numpy(cfg, state) -> dict:
+    """The port's ``OptState`` as the reference's fields: ``{"step": int32,
+    "m": tree, "v": tree}`` (``repro.train.optimizer.OptState(**...)``)."""
+    def tree(moments):
+        return _body_names(cfg, {k: _numpy(t) for k, t in moments.items()})
+
+    return {"step": np.asarray(int(state.step), np.int32), "m": tree(state.m), "v": tree(state.v)}
 
 
 def lm_cache_from_numpy(cfg, cache, *, device=None) -> list:

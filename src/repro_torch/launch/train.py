@@ -1,28 +1,206 @@
-"""Training driver: streamed budgeted-SVM training (``--arch svm_bsgd``).
+"""Training entry point: the language models' trainer and streamed budgeted-SVM training.
 
-The ``--arch svm_bsgd`` arm of ``repro.launch.train``: ``svm_stream_loop``
-trains over a chunk source (a directory of ``.npz`` shards or a LIBSVM text
-file) through the streaming drivers, with checkpoints, prefetch, retries and
-the finite guard.  ``--svm-layout replicated`` or ``slots`` trains one binary
-problem (``fit_stream``), ``class`` ``--svm-classes`` one-vs-rest problems
-(``fit_multiclass_stream``).  On one process these are the single-device
-drivers; under ``torchrun`` every rank runs the layout's chunk program
-(``core.distributed``) over a process group (``launch.dist``):
+PyTorch counterpart of ``repro.launch.train``.
 
+``--arch <lm>`` trains a language model (``train_loop``) on the port's
+bigram stream (frames for the encoder) with AdamW and the cosine schedule,
+under the reference's fault-tolerance contract:
+
+  * checkpoints are atomic and keep-last-k (``repro_torch.checkpoint``), in
+    the reference's names and layout (``{"params", "opt"}``), so either
+    package resumes the other's; on start the trainer resumes from the
+    newest complete one;
+  * a per-step deadline flags stragglers; after ``max_strikes``
+    consecutive overruns the trainer saves and exits with 75 (EX_TEMPFAIL)
+    for its supervisor (``launch.elastic``) to restart it;
+  * ``FAULT_AT_STEP`` crashes the process at that step (fault drills).
+
+``--arch svm_bsgd`` is ``svm_stream_loop``: streamed SVM training over a
+chunk source (a directory of ``.npz`` shards or a LIBSVM text file) through
+the streaming loops, with checkpoints, prefetch, retries and the finite
+guard; ``--svm-layout replicated`` or ``slots`` trains one binary problem
+(``fit_stream``), ``class`` ``--svm-classes`` one-vs-rest problems
+(``fit_multiclass_stream``).
+
+On one process both arms train on one device; under ``torchrun`` every
+rank joins a process group (``launch.dist``): the LM arm trains
+data-parallel (``launch.steps.make_train_step``), the SVM arm runs the
+layout's chunk program (``core.distributed``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm_360m --smoke --steps 100
     PYTHONPATH=src python -m repro_torch.launch.train --arch svm_bsgd \\
         --stream shards/ --svm-layout class --svm-classes 10 --ckpt-dir ck
     PYTHONPATH=src torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
         --arch svm_bsgd --svm-layout slots --stream shards/
 
 It runs on the card; ``--device cpu`` runs it on the host (the CPU tests use
-it).  The language-model arms need the training half of the LM scaffold
-(ROADMAP.md Queue 1 item 12) and raise ``NotImplementedError``.
+it).
 """
 from __future__ import annotations
 
 import argparse
 import glob
 import os
+
+
+EX_TEMPFAIL = 75
+
+
+def _train_state(cfg, model, opt_state) -> dict:
+    """The checkpoint tree, the reference's ``{"params", "opt"}`` layout, in
+    host memory (the scanned layers are stacked there, not on the card)."""
+    from ..convert import lm_tree
+    from ..train.optimizer import OptState
+
+    def host(tensors):
+        return lm_tree(cfg, {k: t.detach().cpu() for k, t in tensors.items()})
+
+    return {"params": host(dict(model.named_parameters())),
+            "opt": OptState(step=opt_state.step.cpu(), m=host(opt_state.m),
+                            v=host(opt_state.v))}
+
+
+def _restore(ckpt_dir: str, step: int, cfg, model, opt_state):
+    """Load ``step`` into ``model`` and ``opt_state`` in place; returns the
+    state with the checkpoint's step counter."""
+    import torch
+
+    from .. import checkpoint as ckpt
+    from ..convert import lm_flat, lm_tree
+    from ..train.optimizer import OptState
+
+    def spec(moments):
+        shapes = {k: ckpt.ShapeDtype(tuple(t.shape), t.dtype) for k, t in moments.items()}
+        return lm_tree(cfg, shapes, stack=lambda xs: ckpt.ShapeDtype((len(xs),) + xs[0].shape,
+                                                                     xs[0].dtype))
+
+    params = dict(model.named_parameters())
+    target = {"params": spec(params),
+              "opt": OptState(step=ckpt.ShapeDtype((), torch.int32), m=spec(opt_state.m),
+                              v=spec(opt_state.v))}
+    state = ckpt.load(ckpt_dir, step, target, device="cpu")
+    with torch.no_grad():
+        for have, tree in ((params, state["params"]), (opt_state.m, state["opt"].m),
+                           (opt_state.v, state["opt"].v)):
+            for k, t in lm_flat(cfg, tree).items():
+                have[k].copy_(t)
+    return OptState(step=state["opt"].step.to(opt_state.step.device), m=opt_state.m,
+                    v=opt_state.v)
+
+
+def train_loop(cfg, *, steps: int = 100, batch_size: int = 8, seq_len: int = 128,
+               ckpt_dir: str | None = None, ckpt_every: int = 25, lr: float = 3e-3,
+               step_deadline_s: float | None = None, max_strikes: int = 3, log_every: int = 10,
+               seed: int = 0, verbose: bool = True, schedule_total: int | None = None,
+               device=None, group=None, model=None, batch_fn=None) -> dict:
+    """Train ``cfg``'s model to ``steps`` steps; returns ``{"losses",
+    "resumed_from", "final_loss", "bigram_floor", "model", "opt_state",
+    "ms_per_step"}``.
+
+    AdamW on the cosine schedule over ``schedule_total or steps`` (pass the
+    whole job's length when running a leg of it, so an interrupted and
+    resumed run sees the same schedule).  The model is ``init_lm(cfg,
+    seed=seed)`` on ``device`` (default the card) unless ``model`` is given;
+    step i's batch is ``batch_fn(i)`` when given, else drawn from the port's
+    bigram stream (``frames_batch`` for the encoder) by a generator seeded
+    from ``(seed + 1, i)``.  The loop reads the device only to log, at a
+    deadline's check and at the end (``ms_per_step`` is the wall time a step
+    after the first).  ``group``, a process group of W ranks each calling
+    this alike, trains data-parallel; rank 0 alone writes checkpoints."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from .. import checkpoint as ckpt
+    from ..core import resolve_device
+    from ..data.tokens import BigramStream, frames_batch, step_generator
+    from ..models import init_lm
+    from ..train.optimizer import AdamW, cosine_schedule
+    from .steps import make_train_step
+
+    dev = resolve_device(device)
+    if model is None:
+        model = init_lm(cfg, seed=seed, device=dev)
+    else:
+        have = next(model.parameters()).device
+        if have.type != dev.type or dev.index not in (None, have.index):
+            raise ValueError(f"model on {have}, training on {dev}")
+        dev = have
+    rank, world = (0, 1) if group is None else (dist.get_rank(group), dist.get_world_size(group))
+    total = schedule_total or steps
+    opt = AdamW(lr=cosine_schedule(lr, warmup=min(20, total // 10 + 1), total=total))
+    opt_state = opt.init(dict(model.named_parameters()))
+
+    start_step, resumed_from = 0, None
+    latest = ckpt.latest_step(ckpt_dir) if ckpt_dir else None
+    if latest is not None:
+        opt_state = _restore(ckpt_dir, latest, cfg, model, opt_state)
+        start_step = resumed_from = latest
+        if verbose and rank == 0:
+            print(f"[train] resumed from step {latest}", flush=True)
+
+    def save(step):
+        if rank == 0:
+            ckpt.save(ckpt_dir, step, _train_state(cfg, model, opt_state))
+
+    step_fn = make_train_step(cfg, opt, group=group)
+    frames = cfg.input_kind == "frames"
+    stream = None if frames or batch_fn else BigramStream(cfg.vocab_size, seed=seed, device=dev)
+    fault_at = int(os.environ.get("FAULT_AT_STEP", -1))
+    losses, strikes = [], 0
+    t_first = last = None
+    for step in range(start_step, steps):
+        if batch_fn is not None:
+            batch = batch_fn(step)
+        else:
+            gen = step_generator(seed + 1, step, dev)
+            batch = (frames_batch(gen, batch_size, seq_len, cfg.frame_dim, cfg.vocab_size)
+                     if frames else stream.batch(gen, batch_size, seq_len))
+        t0 = time.perf_counter()
+        opt_state, loss = step_fn(model, opt_state, batch)
+        losses.append(loss)
+        if step == fault_at:
+            print(f"[train] FAULT INJECTION at step {step}", flush=True)
+            os._exit(137)
+        if step_deadline_s is not None and step > start_step:   # the first step warms up
+            float(loss)
+            over = torch.tensor(float(time.perf_counter() - t0 > step_deadline_s), device=dev)
+            if world > 1:                      # every rank strikes together
+                dist.all_reduce(over, op=dist.ReduceOp.MAX, group=group)
+            if float(over):
+                strikes += 1
+                if rank == 0:
+                    print(f"[train] STRAGGLER step {step}: {time.perf_counter() - t0:.2f}s > "
+                          f"{step_deadline_s}s ({strikes}/{max_strikes})", flush=True)
+                if strikes >= max_strikes:
+                    if ckpt_dir:
+                        save(step + 1)
+                    raise SystemExit(EX_TEMPFAIL)
+            else:
+                strikes = 0
+        if step == start_step or (verbose and step % log_every == 0):
+            value = float(loss)                # waits for the step
+            now = time.perf_counter()
+            if verbose and rank == 0 and step % log_every == 0:
+                span = ("first step" if last is None else
+                        f"{(now - last[1]) / (step - last[0]) * 1e3:.1f} ms a step")
+                print(f"[train] step {step} loss {value:.6f} ({span})", flush=True)
+            t_first = now if step == start_step else t_first
+            last = (step, now)
+        if ckpt_dir and (step + 1) % ckpt_every == 0:
+            save(step + 1)
+    values = torch.stack(losses).tolist() if losses else []       # waits for the last step
+    ms_per_step = ((time.perf_counter() - t_first) / (len(values) - 1) * 1e3
+                   if len(values) > 1 else None)
+    if ckpt_dir:
+        save(steps)
+    if world > 1:
+        dist.barrier(group)        # rank 0's last checkpoint is on disk before any rank returns
+    return {"losses": values, "resumed_from": resumed_from,
+            "final_loss": values[-1] if values else None,
+            "bigram_floor": stream.bigram_entropy() if stream is not None else None,
+            "model": model, "opt_state": opt_state, "ms_per_step": ms_per_step}
 
 
 def svm_stream_loop(source, *, layout: str = "replicated", n_classes: int = 8, budget: int = 128,
@@ -124,9 +302,17 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced same-family config (language-model arms)")
+    ap.add_argument("--steps", type=int, default=100, help="language models: steps to train")
     ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128, help="language models: tokens a row")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--deadline", type=float, default=None, metavar="SECONDS",
+                    help="language models: a step's deadline; 3 overruns in a row save and "
+                         "exit 75")
+    ap.add_argument("--lr", type=float, default=3e-3, help="language models: peak learning rate")
+    ap.add_argument("--log-every", type=int, default=10,
+                    help="language models: log the loss every this many steps")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stream", default=None, metavar="PATH",
                     help="svm_bsgd: chunk source, a directory of .npz shards or a LIBSVM "
@@ -153,10 +339,8 @@ def main(argv=None) -> None:
                     help="torch device (default the card; 'cpu' runs on the host)")
     args = ap.parse_args(argv)
     if args.arch != "svm_bsgd":
-        raise NotImplementedError(
-            f"--arch {args.arch}: language-model training (train_loop, the optimizer, the "
-            "pipeline) is the training half of ROADMAP.md Queue 1 item 12 and is not ported "
-            "yet; language models serve through repro_torch.launch.serve")
+        _train_lm(args)
+        return
     if not args.stream:
         raise SystemExit("--arch svm_bsgd needs --stream PATH")
     from ..data import ResilienceReport, RetryPolicy
@@ -182,6 +366,32 @@ def main(argv=None) -> None:
         dist_launch.shutdown()
     if report is not None:
         print(f"[train] resilience: {report!r}")
+
+
+def _train_lm(args) -> None:
+    from ..configs import get, get_smoke
+
+    from . import dist as dist_launch
+
+    cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
+    device, group, rank = args.device, None, 0
+    if "WORLD_SIZE" in os.environ:            # started by torchrun
+        import torch.distributed as dist
+
+        device, group = dist_launch.init(args.device), dist.group.WORLD
+        rank = dist.get_rank()
+    try:
+        metrics = train_loop(cfg, steps=args.steps, batch_size=args.batch_size,
+                             seq_len=args.seq_len, ckpt_dir=args.ckpt_dir,
+                             ckpt_every=args.ckpt_every, step_deadline_s=args.deadline,
+                             lr=args.lr, log_every=args.log_every, seed=args.seed,
+                             device=device, group=group)
+    finally:
+        dist_launch.shutdown()
+    if rank == 0:
+        world = 1 if group is None else int(os.environ["WORLD_SIZE"])
+        print(f"[train] done: {cfg.name} final loss {metrics['final_loss']:.6f} (bigram floor "
+              f"{metrics['bigram_floor']}) ranks={world}", flush=True)
 
 
 if __name__ == "__main__":

@@ -32,13 +32,13 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-        self.wq = empty_param((d, h, hd), dtype, device)
-        self.wk = empty_param((d, hkv, hd), dtype, device)
-        self.wv = empty_param((d, hkv, hd), dtype, device)
-        self.wo = empty_param((h, hd, d), dtype, device)
+        self.wq = empty_param((d, h, hd), dtype, device, axes=("embed", "q_heads", "head"))
+        self.wk = empty_param((d, hkv, hd), dtype, device, axes=("embed", "kv_heads", "head"))
+        self.wv = empty_param((d, hkv, hd), dtype, device, axes=("embed", "kv_heads", "head"))
+        self.wo = empty_param((h, hd, d), dtype, device, axes=("q_heads", "head", "embed"))
         if cfg.qk_norm:
-            self.q_norm = empty_param((hd,), dtype, device)
-            self.k_norm = empty_param((hd,), dtype, device)
+            self.q_norm = empty_param((hd,), dtype, device, axes=("head",))
+            self.k_norm = empty_param((hd,), dtype, device, axes=("head",))
 
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:

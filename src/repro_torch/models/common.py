@@ -20,9 +20,18 @@ DRAW_BLOCK = 1 << 28           # float32 elements drawn at once (1 GiB)
 _TRUNC = math.erf(2.0 / math.sqrt(2.0))   # P(|z| < 2) mapped to erf's range
 
 
-def empty_param(shape, dtype, device=None) -> nn.Parameter:
-    """An uninitialised parameter; the modules' ``init_`` draws it."""
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+def empty_param(shape, dtype, device=None, *, axes: tuple) -> nn.Parameter:
+    """An uninitialised parameter; the modules' ``init_`` draws it.
+
+    ``axes`` names each dim's logical axis, the names the reference passes
+    to ``repro.models.common.param`` (None for a dim never sharded); it is
+    kept as the parameter's ``axes`` attribute, which
+    ``sharding.specs.param_specs`` resolves against a mesh."""
+    if len(axes) != len(shape):
+        raise ValueError(f"axes {axes} do not name the dims of shape {tuple(shape)}")
+    p = nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+    p.axes = tuple(axes)
+    return p
 
 
 def trunc_normal_(t: torch.Tensor, gen: torch.Generator, scale: float | None = None):

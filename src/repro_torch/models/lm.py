@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.bsgd import resolve_device
 from .attention import Attention, init_attn_cache
@@ -44,10 +45,10 @@ class DenseFFN(nn.Module):
         super().__init__()
         self.swiglu = cfg.mlp_act == "swiglu"
         d = cfg.d_model
-        self.w_up = empty_param((d, width), dtype, device)
-        self.w_down = empty_param((width, d), dtype, device)
+        self.w_up = empty_param((d, width), dtype, device, axes=("embed", "ffn"))
+        self.w_down = empty_param((width, d), dtype, device, axes=("ffn", "embed"))
         if self.swiglu:
-            self.w_gate = empty_param((d, width), dtype, device)
+            self.w_gate = empty_param((d, width), dtype, device, axes=("embed", "ffn"))
 
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:
@@ -68,13 +69,13 @@ class Layer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.kind, self.ffn_kind = cfg.mixer_kind(index), cfg.ffn_kind(index)
-        self.ln1 = empty_param((cfg.d_model,), dtype, device)
+        self.ln1 = empty_param((cfg.d_model,), dtype, device, axes=("embed",))
         if self.kind == "attn":
             self.mixer = (MLA if cfg.attn_kind == "mla" else Attention)(cfg, dtype, device)
         else:
             self.mixer = Mamba2(cfg, dtype, device)
         if self.ffn_kind != "none":
-            self.ln2 = empty_param((cfg.d_model,), dtype, device)
+            self.ln2 = empty_param((cfg.d_model,), dtype, device, axes=("embed",))
         if self.ffn_kind == "dense":
             width = cfg.moe_dense_ff() if cfg.moe is not None else cfg.d_ff
             self.ffn = DenseFFN(cfg, width, dtype, device)
@@ -107,9 +108,10 @@ class MTP(nn.Module):
 
     def __init__(self, cfg, dtype, device=None):
         super().__init__()
-        self.proj = empty_param((2 * cfg.d_model, cfg.d_model), dtype, device)
+        self.proj = empty_param((2 * cfg.d_model, cfg.d_model), dtype, device,
+                                axes=("embed", "embed_out"))
         self.block = Layer(cfg, cfg.n_layers - 1, dtype, device)
-        self.norm = empty_param((cfg.d_model,), dtype, device)
+        self.norm = empty_param((cfg.d_model,), dtype, device, axes=("embed",))
 
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:
@@ -128,13 +130,20 @@ class LM(nn.Module):
         self.cfg = cfg
         dtype, d = model_dtype(cfg), cfg.d_model
         if cfg.input_kind == "frames":
-            self.frame_proj = empty_param((cfg.frame_dim, d), dtype, device)
-            self.mask_embed = empty_param((d,), dtype, device)
-        self.embed = empty_param((cfg.vocab_padded, d), dtype, device)
-        self.final_norm = empty_param((d,), dtype, device)
+            self.frame_proj = empty_param((cfg.frame_dim, d), dtype, device,
+                                          axes=("frame", "embed"))
+            self.mask_embed = empty_param((d,), dtype, device, axes=("embed",))
+        self.embed = empty_param((cfg.vocab_padded, d), dtype, device, axes=("vocab", "embed"))
+        self.final_norm = empty_param((d,), dtype, device, axes=("embed",))
         if not cfg.tie_embeddings:
-            self.lm_head = empty_param((d, cfg.vocab_padded), dtype, device)
+            self.lm_head = empty_param((d, cfg.vocab_padded), dtype, device,
+                                       axes=("embed", "vocab"))
         self.layers = nn.ModuleList(Layer(cfg, i, dtype, device) for i in range(cfg.n_layers))
+        for layer in self.layers[cfg.prefix_layers:]:
+            for p in layer.parameters():
+                # the reference stacks these along a leading layer-group dim
+                # (its ``body``), which its optimizer counts
+                p.scanned = True
         if cfg.mtp_depth:
             self.mtp = MTP(cfg, dtype, device)
 
@@ -191,13 +200,19 @@ def _as_pos(cache_pos, device) -> torch.Tensor:
     return torch.full((), int(cache_pos), dtype=torch.int32, device=device)
 
 
+def _layer_full(layer: Layer, x, positions):
+    return layer(x, positions, mode="full")[0]
+
+
 def forward(cfg, model: LM, batch, *, mode: str = "full", cache=None, cache_pos=None,
             return_hidden: bool = False):
     """Returns (logits, new_cache[, hidden]).
 
     batch: {"tokens": (B, S)} (or the tokens tensor) or {"frames", "mask"}
     for encoders; in decode, tokens is (B, 1) and ``cache``/``cache_pos``
-    must be given (the caches are updated in place and returned)."""
+    must be given (the caches are updated in place and returned).  With
+    ``cfg.remat`` and grad enabled, a full forward recomputes each layer in
+    the backward instead of keeping its activations."""
     _check(cfg, model)
     x = _embed_inputs(cfg, model, batch)
     b, s, _ = x.shape
@@ -205,10 +220,17 @@ def forward(cfg, model: LM, batch, *, mode: str = "full", cache=None, cache_pos=
     if mode == "decode":
         cache_pos = _as_pos(cache_pos, x.device)
     new_caches = []
-    for i, layer in enumerate(model.layers):
-        x, layer_cache = layer(x, positions, mode=mode, cache=None if cache is None else cache[i],
-                               cache_pos=cache_pos)
-        new_caches.append(layer_cache)
+    if mode == "full" and cfg.remat and torch.is_grad_enabled():
+        # the reference's jax.checkpoint of each scanned unit, a layer at a
+        # time here: the backward keeps only each layer's input and runs
+        # the layer's forward again
+        for layer in model.layers:
+            x = checkpoint(_layer_full, layer, x, positions, use_reentrant=False)
+    else:
+        for i, layer in enumerate(model.layers):
+            x, layer_cache = layer(x, positions, mode=mode,
+                                   cache=None if cache is None else cache[i], cache_pos=cache_pos)
+            new_caches.append(layer_cache)
     hidden = x
     logits = rms_norm(x, model.final_norm, cfg.norm_eps) @ model.head()
     new_cache = new_caches if mode in ("prefill", "decode") else None

@@ -37,18 +37,18 @@ class Mamba2(nn.Module):
         self.cfg = cfg
         s, d_in, n_heads, _ = _dims(cfg)
         d, bc = cfg.d_model, 2 * s.n_groups * s.d_state
-        self.in_zx = empty_param((d, 2 * d_in), dtype, device)
-        self.in_bc = empty_param((d, bc), dtype, device)
-        self.in_dt = empty_param((d, n_heads), dtype, device)
-        self.conv_wx = empty_param((s.d_conv, d_in), dtype, device)
-        self.conv_bx = empty_param((d_in,), dtype, device)
-        self.conv_wbc = empty_param((s.d_conv, bc), dtype, device)
-        self.conv_bbc = empty_param((bc,), dtype, device)
-        self.A_log = empty_param((n_heads,), torch.float32, device)
-        self.dt_bias = empty_param((n_heads,), torch.float32, device)
-        self.D_skip = empty_param((n_heads,), dtype, device)
-        self.gate_norm = empty_param((d_in,), dtype, device)
-        self.out = empty_param((d_in, d), dtype, device)
+        self.in_zx = empty_param((d, 2 * d_in), dtype, device, axes=("embed", "inner"))
+        self.in_bc = empty_param((d, bc), dtype, device, axes=("embed", None))
+        self.in_dt = empty_param((d, n_heads), dtype, device, axes=("embed", None))
+        self.conv_wx = empty_param((s.d_conv, d_in), dtype, device, axes=(None, "inner"))
+        self.conv_bx = empty_param((d_in,), dtype, device, axes=("inner",))
+        self.conv_wbc = empty_param((s.d_conv, bc), dtype, device, axes=(None, None))
+        self.conv_bbc = empty_param((bc,), dtype, device, axes=(None,))
+        self.A_log = empty_param((n_heads,), torch.float32, device, axes=(None,))
+        self.dt_bias = empty_param((n_heads,), torch.float32, device, axes=(None,))
+        self.D_skip = empty_param((n_heads,), dtype, device, axes=(None,))
+        self.gate_norm = empty_param((d_in,), dtype, device, axes=("inner",))
+        self.out = empty_param((d_in, d), dtype, device, axes=("inner", "embed"))
 
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:

@@ -36,15 +36,19 @@ class MLA(nn.Module):
         d, h = cfg.d_model, cfg.n_heads
         qk_dim = m.qk_nope_dim + m.qk_rope_dim
         if m.q_lora_rank:
-            self.wq_a = empty_param((d, m.q_lora_rank), dtype, device)
-            self.q_norm = empty_param((m.q_lora_rank,), dtype, device)
-            self.wq_b = empty_param((m.q_lora_rank, h, qk_dim), dtype, device)
+            self.wq_a = empty_param((d, m.q_lora_rank), dtype, device, axes=("embed", "q_lora"))
+            self.q_norm = empty_param((m.q_lora_rank,), dtype, device, axes=("q_lora",))
+            self.wq_b = empty_param((m.q_lora_rank, h, qk_dim), dtype, device,
+                                    axes=("q_lora", "q_heads", "head"))
         else:
-            self.wq = empty_param((d, h, qk_dim), dtype, device)
-        self.wkv_a = empty_param((d, m.kv_lora_rank + m.qk_rope_dim), dtype, device)
-        self.kv_norm = empty_param((m.kv_lora_rank,), dtype, device)
-        self.wkv_b = empty_param((m.kv_lora_rank, h, m.qk_nope_dim + m.v_head_dim), dtype, device)
-        self.wo = empty_param((h, m.v_head_dim, d), dtype, device)
+            self.wq = empty_param((d, h, qk_dim), dtype, device, axes=("embed", "q_heads", "head"))
+        self.wkv_a = empty_param((d, m.kv_lora_rank + m.qk_rope_dim), dtype, device,
+                                 axes=("embed", "kv_lora"))
+        self.kv_norm = empty_param((m.kv_lora_rank,), dtype, device, axes=("kv_lora",))
+        self.wkv_b = empty_param((m.kv_lora_rank, h, m.qk_nope_dim + m.v_head_dim), dtype, device,
+                                 axes=("kv_lora", "q_heads", "head"))
+        self.wo = empty_param((h, m.v_head_dim, d), dtype, device,
+                              axes=("q_heads", "head", "embed"))
 
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:

@@ -23,9 +23,9 @@ class SharedExperts(nn.Module):
 
     def __init__(self, d: int, width: int, dtype, device=None):
         super().__init__()
-        self.w_gate = empty_param((d, width), dtype, device)
-        self.w_up = empty_param((d, width), dtype, device)
-        self.w_down = empty_param((width, d), dtype, device)
+        self.w_gate = empty_param((d, width), dtype, device, axes=("embed", "ffn"))
+        self.w_up = empty_param((d, width), dtype, device, axes=("embed", "ffn"))
+        self.w_down = empty_param((width, d), dtype, device, axes=("ffn", "embed"))
 
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:
@@ -44,10 +44,13 @@ class MoE(nn.Module):
         super().__init__()
         self.cfg = cfg
         m, d = cfg.moe, cfg.d_model
-        self.router = empty_param((d, m.num_experts), torch.float32, device)
-        self.w_gate = empty_param((m.num_experts, d, m.d_expert), dtype, device)
-        self.w_up = empty_param((m.num_experts, d, m.d_expert), dtype, device)
-        self.w_down = empty_param((m.num_experts, m.d_expert, d), dtype, device)
+        self.router = empty_param((d, m.num_experts), torch.float32, device, axes=("embed", None))
+        self.w_gate = empty_param((m.num_experts, d, m.d_expert), dtype, device,
+                                  axes=("experts", "embed", "expert_ffn"))
+        self.w_up = empty_param((m.num_experts, d, m.d_expert), dtype, device,
+                                axes=("experts", "embed", "expert_ffn"))
+        self.w_down = empty_param((m.num_experts, m.d_expert, d), dtype, device,
+                                  axes=("experts", "expert_ffn", "embed"))
         if m.n_shared:
             self.shared = SharedExperts(d, m.n_shared * m.d_expert, dtype, device)
 

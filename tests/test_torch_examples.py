@@ -16,7 +16,7 @@ import torch
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 SCRIPTS = ["torch_quickstart", "torch_svm_speedup", "torch_svm_multiclass", "torch_svm_stream",
-           "torch_svm_serve_live", "torch_budgeted_kv_serve"]
+           "torch_svm_serve_live", "torch_budgeted_kv_serve", "torch_train_lm"]
 
 
 @pytest.fixture(autouse=True)
@@ -121,3 +121,11 @@ def test_budgeted_kv_serve(capsys):
     assert re.search(r"t=\s+64 cache= 16/16\s+merge_err=[\d.]+\s+evict_err=[\d.]+", out), out
     final = re.search(r"final rel err: merge=([\d.]+) evict=([\d.]+)", out)
     assert final and float(final.group(1)) <= float(final.group(2))
+
+
+def test_train_lm(capsys):
+    """One layer of the default model's width, 100 steps of 8 x 32 tokens."""
+    out = _run("torch_train_lm", ["--layers", "1", "--steps", "100", "--seq-len", "32"], capsys)
+    assert re.search(r"training smollm_360m: [\d.]+M params, 100 steps, batch 8 x 32", out), out
+    first, last = map(float, re.search(r"loss: first10=([\d.]+) last10=([\d.]+)", out).groups())
+    assert last < first - 0.5 and "OK: loss dropped toward the bigram floor" in out

@@ -86,15 +86,15 @@ def test_train_cli_streams_a_libsvm_file_on_the_class_axis(tmp_path):
     _bit_equal(direct, _restored(ck, direct))
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--arch", "smollm_360m", "--smoke"], "12")])
-def test_train_cli_unported_arms_raise(argv, item, tmp_path):
+@pytest.mark.parametrize("argv", [["--arch", "smollm_360m", "--smoke"]])
+def test_train_cli_lm_arm_trains(argv, tmp_path, capsys):
+    """The language-model arm beside the SVM arm: it ignores ``--stream``'s
+    options and trains (its own tests: ``test_torch_lm_train.py``)."""
     from repro_torch.launch import train
-    x, y = tdata.make_blobs(np.random.default_rng(0), 32, 4)
-    tdata.write_npz_chunks(str(tmp_path), x, y, 16)
-    argv = [str(tmp_path) if a == "." else a for a in argv]
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        train.main(argv + ["--device", "cpu"])
+    train.main(argv + ["--steps", "2", "--batch-size", "2", "--seq-len", "8", "--ckpt-dir",
+                       str(tmp_path / "ck"), "--device", "cpu"])
+    assert "[train] done: smollm_360m final loss" in capsys.readouterr().out
+    assert tckpt.latest_step(str(tmp_path / "ck")) == 2
 
 
 def test_train_cli_slots_layout_on_one_process_is_fit_stream(tmp_path, capsys):
