@@ -223,15 +223,34 @@ non-zero exit code:
      depth 2, fp32, batch 2 x 128: the card's loss and every gradient
      against the port's CPU path on the same weights (1e-5 relative, 1e-4
      of each leaf's scale), then one AdamW update on both from the same
-     gradients (1e-6); (c) ``examples/torch_train_lm.py`` on ``cuda`` at its
-     defaults (its own check: the loss drops by 0.5); (d) ``launch.elastic``
+     gradients (1e-6); (c) ``examples/torch_train_lm.py`` on ``cuda`` for 150
+     of its 300 steps (a ``CUT:`` line; its own check: the loss drops by
+     0.5); (d) ``launch.elastic``
      with a fault at step 12 of 24 (``restarts 1``, the resumed losses
      within 2e-3 of an uninterrupted run's) and ``--deadline`` below a
      step's time (exit 75, a checkpoint on disk); (e) two ranks sharing the
      card under gloo: one data-parallel step of (b)'s model at batch 8 split
      4/4 against one process (1e-5), ``compressed_psum`` of the ranks'
      gradients within one quantization step of their mean, and
-     ``pipeline_forward`` over 2 stages against the sequential loop (1e-4).
+     ``pipeline_forward`` over 2 stages against the sequential loop (1e-4);
+ 22. the language models on a ``DeviceMesh`` (``launch.mesh``,
+     ``sharding.specs``, ``make_train_step(mesh=)``, the checkpointer's
+     ``shardings=``; no kernel lies on it, as none lies on the reference's
+     GSPMD sharding): (a) a (1, 1) mesh under NCCL in this process (world
+     1), ``smollm_360m`` as published (bf16, remat) at batch 4 x 1,024: one
+     tp and one fsdp step, each bit-equal to the unsharded step in the loss
+     and every updated parameter, and ms a warm step of all three; (b) two
+     gloo ranks: first one DTensor all-gather of a CUDA tensor on the card
+     (its exit codes printed: it ends the ranks with a signal on torch 2.11),
+     then, on the host's CPU mesh, ``smollm_360m`` at its published widths
+     and depth in fp32, batch 2 x 64 (a ``CUT:`` line), tp on 1 x 2 and
+     fsdp on 2 x 1, one step each: loss and gradients against one process
+     (1e-5 of scale) and each rank's resident bytes of parameters and AdamW
+     moments against one process's, equal to the share the specs give and
+     printed beside the predicted 0.61 and 0.50; (c) the checkpoint written
+     on (b)'s 1 x 2 mesh restored onto the card's (1, 1) mesh, array-equal;
+     (d) ``seq_shard_attn=("data",)`` on (b)'s 1 x 2 mesh: the loss within
+     1e-4 of the step without it.
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 It imports nothing from the JAX package.  Without a CUDA device, or without
@@ -4064,6 +4083,7 @@ LM_CHECK_BATCH, LM_CHECK_SEQ = 2, 128    # (b): card against CPU
 LM_DP_BATCH, LM_DP_TOL = 8, 1e-5         # (e): two ranks, 4 rows each
 LM_PIPE = dict(groups=8, micro=6, rows=4, d=960)   # (e): pipeline_forward
 LM_TRAJ_TOL = 2e-3                       # (d): the reference's resume tolerance
+LM_EXAMPLE_STEPS = 150                   # (c): cut from the example's 300 for phase 22
 BF16_PEAK_FLOPS_PER_S = 989e12           # H100 SXM dense bf16 (NVIDIA data sheet)
 
 
@@ -4393,7 +4413,8 @@ def phase_lm_train(card, build_dir):
         t1 = time.perf_counter()
         lm_train_card_vs_cpu(configs, models, convert, optim, card)
         t2 = time.perf_counter()
-        lines = run_example("torch_train_lm", [])
+        print(f"CUT: torch_train_lm runs {LM_EXAMPLE_STEPS} of its 300 steps (phase 22's time)")
+        lines = run_example("torch_train_lm", ["--steps", str(LM_EXAMPLE_STEPS)])
         check(any(ln.startswith("OK: loss dropped") for ln in lines), "the example's loss")
         t3 = time.perf_counter()
         lm_train_drills(configs, lm_train, card, tmp)
@@ -4404,6 +4425,301 @@ def phase_lm_train(card, build_dir):
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 21 seconds: (a) {t1 - t0:.3f}, (b) {t2 - t1:.3f}, (c) {t3 - t2:.3f}, "
           f"(d) {t4 - t3:.3f}, (e) {t5 - t4:.3f}")
+
+# phase 22: the language models on a DeviceMesh
+MESH_BATCH, MESH_SEQ = 4, 1024          # (a): one card, bf16, remat on
+MESH_CPU_BATCH, MESH_CPU_SEQ = 2, 64    # (b)-(d): two gloo ranks on the host, fp32
+MESH_TOL, MESH_SEQ_TOL = 1e-5, 1e-4     # (b) against one process; (d) the reference's gate
+MESH_PREDICTED = {"tp": 0.61, "fsdp": 0.50}   # a rank's share of one process's bytes (PERF.md)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _resident(params: dict, state) -> int:
+    """Bytes a rank holds of the parameters and both AdamW moments."""
+    from torch.distributed.tensor import DTensor
+
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    return sum(local(t).numel() * local(t).element_size()
+               for t in [*params.values(), *state.m.values(), *state.v.values()])
+
+
+def mesh_one_card(configs, models, specs, steps_mod, optim, mesh, card):
+    """(a) the (1, 1) mesh under NCCL: a tp and an fsdp step of smollm_360m as
+    published, each bit-equal to the unsharded step; ms a step of all three."""
+    cfg = configs.get(LM_SERVE_ARCH)
+    batch = _lm_batch(cfg, MESH_BATCH, MESH_SEQ)
+    base = models.init_lm(cfg, seed=SEED, device=LM_DEVICE)
+    weights = {k: p.detach().clone() for k, p in base.named_parameters()}
+    del base
+    runs = {}
+    for name in ("unsharded", "tp", "fsdp"):
+        model = models.LM(cfg, torch.device(LM_DEVICE))
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(weights[k])
+        opt = optim.AdamW(lr=3e-3)
+        if name == "unsharded":
+            step = steps_mod.make_train_step(cfg, opt)
+        else:
+            specs.distribute_model(model, mesh, name)
+            step = steps_mod.make_train_step(cfg, opt, mesh=mesh, strategy=name)
+        params = dict(model.named_parameters())
+        state, loss = step(model, opt.init(params), batch)
+        whole = {k: (p.to_local() if name != "unsharded" else p).detach().clone()
+                 for k, p in params.items()}
+        loss = (loss if name == "unsharded" else loss.to_local()).clone()
+        _sync(LM_DEVICE)
+        t0 = time.perf_counter()
+        state, _ = step(model, state, batch)
+        _sync(LM_DEVICE)
+        runs[name] = (loss, whole, (time.perf_counter() - t0) * 1e3)
+        del model, params, state, step
+        _free()
+    loss0, p0, ms0 = runs["unsharded"]
+    for name in ("tp", "fsdp"):
+        loss, p, ms = runs[name]
+        same = torch.equal(loss, loss0) and all(torch.equal(p[k], p0[k]) for k in p0)
+        print(f"mesh (a) {name} on a (1, 1) mesh ({torch.distributed.get_backend()}, world 1), "
+              f"{cfg.name} bf16, remat on, "
+              f"batch {MESH_BATCH} x {MESH_SEQ}: loss {float(loss):.6f}, bit-equal to the "
+              f"unsharded step in loss and all {len(p0)} updated parameters {same}; "
+              f"{ms:.3f} ms a warm step against {ms0:.3f} unsharded ({card})")
+        check(same, f"phase 22 (a): the {name} step parts from the unsharded one")
+    del runs, weights
+    _free()
+
+
+def _gloo_cuda_child(rank, world, store):
+    """Two gloo ranks on the card: one DTensor all-gather of a CUDA tensor."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=60))
+    mesh = init_device_mesh("cuda", (1, 2), mesh_dim_names=("data", "model"))
+    t = distribute_tensor(torch.ones(8, 8, device="cuda"), mesh, [Replicate(), Shard(0)],
+                          src_data_rank=None)
+    t.redistribute(mesh, [Replicate(), Replicate()])
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+
+
+def _mesh_child(rank, world, store, tmp, threads):
+    """A rank of phase 22 (b)-(d): two gloo ranks on the host CPU."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import math
+    import zlib
+
+    import torch.distributed as dist
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import configs, models
+    from repro_torch.launch import dist as dist_launch
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import specs
+    from repro_torch.train import SGD
+
+    torch.set_num_threads(threads)
+    dist_launch.init("cpu", rank=rank, world_size=world, init_method=f"file://{store}",
+                     timeout_s=DIST_TIMEOUT_S)
+    out = {}
+    try:
+        cfg = dataclasses.replace(configs.get(LM_SERVE_ARCH), dtype="float32")
+        batch = _lm_batch(cfg, MESH_CPU_BATCH, MESH_CPU_SEQ, "cpu")
+        opt = SGD(lr=0.0)                        # leaves the weights, m is the gradient
+        results = {}
+        for name, shape, strategy, seq in (("tp", (1, 2), "tp", None),
+                                           ("fsdp", (2, 1), "fsdp", None),
+                                           ("seq", (1, 2), "tp", ("data",))):
+            mesh = make_mesh(shape, ("data", "model"), device="cpu")
+            c = dataclasses.replace(cfg, seq_shard_attn=seq)
+            t0 = time.perf_counter()
+            model = models.init_lm(c, seed=SEED, mesh=mesh, strategy=strategy)
+            init_s = time.perf_counter() - t0
+            params = dict(model.named_parameters())
+            state = opt.init(params)
+            t0 = time.perf_counter()
+            state, loss = steps_mod.make_train_step(c, opt, mesh=mesh, strategy=strategy)(
+                model, state, batch)
+            step_s = time.perf_counter() - t0
+            sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+            share = sum(p.numel() / math.prod(sizes[e] for e in spec if e is not None)
+                        for p, spec in zip(params.values(),
+                                           specs.param_specs(model, mesh, strategy).values()))
+            results[name] = {"loss": float(loss.to_local()), "init_s": init_s,
+                             "step_s": step_s, "bytes": _resident(params, state),
+                             "spec_share": share / sum(p.numel() for p in params.values())}
+            if name != "seq":
+                results[name]["grads"] = {k: t.full_tensor() for k, t in state.m.items()}
+            if name == "tp":                     # (c): written on this 1 x 2 mesh
+                ckpt.save(str(Path(tmp) / "mesh-ckpt"), 1, {"params": params})
+                crc = {k: zlib.crc32(p.full_tensor().detach().numpy().tobytes())
+                       for k, p in params.items()}
+            del model, params, state
+        if rank == 0:
+            model = models.init_lm(cfg, seed=SEED, device="cpu")
+            params = dict(model.named_parameters())
+            t0 = time.perf_counter()
+            state, loss = steps_mod.make_train_step(cfg, opt)(model, opt.init(params), batch)
+            one_s = time.perf_counter() - t0
+            one_bytes = _resident(params, state)
+            out.update(one_loss=float(loss), one_s=one_s, one_bytes=one_bytes, crc=crc,
+                       n_params=sum(p.numel() for p in params.values()))
+            for name in ("tp", "fsdp"):
+                r = results[name]
+                errs = {k: _leaf_err(r["grads"][k], state.m[k]) for k in state.m}
+                worst = max(errs, key=errs.get)
+                out[name] = {"loss_err": abs(r["loss"] - float(loss)) / abs(float(loss)),
+                             "grad_err": errs[worst], "worst": worst,
+                             "init_s": r["init_s"], "step_s": r["step_s"],
+                             "bytes": r["bytes"], "spec_share": r["spec_share"]}
+            out["seq"] = {"loss_diff": abs(results["seq"]["loss"] - results["tp"]["loss"]),
+                          "step_s": results["seq"]["step_s"]}
+        out["bytes"] = {name: results[name]["bytes"] for name in ("tp", "fsdp")}
+    except Exception:
+        import traceback
+
+        out["error"] = traceback.format_exc()
+    finally:
+        (Path(tmp) / f"mesh-rank{rank}.json").write_text(json.dumps(out))
+        dist.destroy_process_group()
+
+
+def _spawn_pair(fn, args, label: str):
+    """Two ranks of ``fn``, started with one hash seed (``launch.mesh.make_mesh``
+    refuses ranks that hash differently); their exit codes."""
+    import torch.multiprocessing as mp
+
+    seed = os.environ.get("PYTHONHASHSEED")
+    os.environ["PYTHONHASHSEED"] = "0"
+    try:
+        ctx = mp.start_processes(fn, args=(2, *args), nprocs=2, join=False,
+                                 start_method="spawn")
+    finally:
+        if seed is None:
+            del os.environ["PYTHONHASHSEED"]
+        else:
+            os.environ["PYTHONHASHSEED"] = seed
+    deadline = time.monotonic() + DIST_JOIN_S
+    while True:
+        try:
+            if ctx.join(timeout=2.0):
+                return [p.exitcode for p in ctx.processes]
+        except Exception:                       # a child died: report its exit codes
+            for p in ctx.processes:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+            return [p.exitcode for p in ctx.processes]
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise RuntimeError(f"phase 22 {label}: the ranks did not finish in {DIST_JOIN_S} s")
+
+
+def mesh_two_ranks(configs, card, tmp: Path):
+    """(b) tp on 1 x 2 and fsdp on 2 x 1 against one process, with each rank's
+    resident bytes against the specs' prediction; (d) seq_shard_attn."""
+    codes = _spawn_pair(_gloo_cuda_child, (str(tmp / "probe-store"),), "(b) probe")
+    print(f"mesh (b) two gloo ranks on the card, one DTensor all-gather of a CUDA tensor "
+          f"(torch {torch.__version__}): exit codes {codes} (a negative code is the signal "
+          f"that ended the rank); the ranks below lay the model out on the host's CPU mesh")
+    cfg = configs.get(LM_SERVE_ARCH)
+    print(f"CUT: phase 22 (b)-(d) run {cfg.name} at its published widths and depth in fp32 "
+          f"on two gloo ranks of the host, batch {MESH_CPU_BATCH} x {MESH_CPU_SEQ}")
+    codes = _spawn_pair(_mesh_child, (str(tmp / "mesh-store"), str(tmp),
+                                      max(1, (os.cpu_count() or 2) // 2)), "(b)")
+    ranks = [json.loads((tmp / f"mesh-rank{r}.json").read_text()) for r in range(2)]
+    for r in ranks:
+        check("error" not in r, f"phase 22 (b): {r.get('error')}")
+    check(codes == [0, 0], f"phase 22 (b): exit codes {codes}")
+    r0, one = ranks[0], ranks[0]["one_bytes"]
+    for name, shape in (("tp", "1 x 2"), ("fsdp", "2 x 1")):
+        r = r0[name]
+        shares = [rk["bytes"][name] / one for rk in ranks]
+        print(f"mesh (b) {name} on a {shape} mesh, {cfg.name} fp32 ({r0['n_params']:,} "
+              f"parameters), batch {MESH_CPU_BATCH} x {MESH_CPU_SEQ}: loss {r['loss_err']:.3e} "
+              f"and gradients {r['grad_err']:.3e} of scale ({r['worst']}) against one process "
+              f"(tolerance "
+              f"{MESH_TOL}); resident bytes of parameters and moments a rank "
+              f"{[rk['bytes'][name] for rk in ranks]} against {one:,} in one process: share "
+              f"{[round(x, 4) for x in shares]}, predicted {MESH_PREDICTED[name]}, the specs' "
+              f"{r['spec_share']:.4f}; the sharded draw {r['init_s']:.3f} s, the step "
+              f"{r['step_s']:.3f} s on the host (its first DTensor call) against "
+              f"{r0['one_s']:.3f} s in one process")
+        check(r["loss_err"] <= MESH_TOL and r["grad_err"] <= MESH_TOL, f"phase 22 (b) {name}")
+        check(all(abs(x - r["spec_share"]) <= 1e-9 for x in shares),
+              f"phase 22 (b) {name}: resident share {shares}, the specs' {r['spec_share']}")
+    d = r0["seq"]["loss_diff"]
+    print(f"mesh (d) seq_shard_attn=('data',) on the 1 x 2 mesh: loss against the same step "
+          f"without it {d:.3e} (tolerance {MESH_SEQ_TOL}); the step {r0['seq']['step_s']:.3f} s")
+    check(d <= MESH_SEQ_TOL, "phase 22 (d): seq_shard_attn moves the loss")
+    return r0["crc"]
+
+
+def mesh_restore(configs, models, specs, ckpt, mesh, crc: dict, tmp: Path, card):
+    """(c) the 1 x 2 mesh's checkpoint restored onto the card's (1, 1) mesh."""
+    import zlib
+
+    cfg = dataclasses.replace(configs.get(LM_SERVE_ARCH), dtype="float32")
+    meta = models.LM(cfg, torch.device("meta"))
+    shardings = specs.param_shardings(meta, mesh, "tp")
+    target = {"params": {k: ckpt.ShapeDtype(tuple(p.shape), p.dtype)
+                         for k, p in meta.named_parameters()}}
+    t0 = time.perf_counter()
+    step, tree = ckpt.restore_latest(str(tmp / "mesh-ckpt"), target,
+                                     shardings={"params": shardings})
+    secs = time.perf_counter() - t0
+    got = {k: zlib.crc32(t.to_local().cpu().numpy().tobytes()) for k, t in tree["params"].items()}
+    same = got == crc
+    print(f"mesh (c) checkpoint written on the 1 x 2 mesh (step {step}), restored on the card's "
+          f"(1, 1) mesh: {len(got)} leaves array-equal (crc32 of the bytes) {same}; the "
+          f"restore {secs:.3f} s ({card})")
+    check(same, "phase 22 (c): the restored checkpoint parts from the saved one")
+
+
+def phase_lm_mesh(card, build_dir):
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import configs, models, train as optim
+    from repro_torch.launch import dist as dist_launch
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import specs
+
+    print(card)
+    tmp = Path(tempfile.mkdtemp(prefix="lm-mesh-", dir=build_dir))
+    dist_launch.init(LM_DEVICE, rank=0, world_size=1,
+                     init_method=f"tcp://localhost:{_free_port()}", timeout_s=DIST_TIMEOUT_S)
+    try:
+        check(dist.get_backend() == ("nccl" if LM_DEVICE == "cuda" else "gloo"),
+              f"phase 22 (a) ran {dist.get_backend()}")
+        mesh = make_mesh((1, 1), ("data", "model"), device=LM_DEVICE)
+        t0 = time.perf_counter()
+        mesh_one_card(configs, models, specs, steps_mod, optim, mesh, card)
+        t1 = time.perf_counter()
+        crc = mesh_two_ranks(configs, card, tmp)
+        t2 = time.perf_counter()
+        mesh_restore(configs, models, specs, ckpt, mesh, crc, tmp, card)
+        t3 = time.perf_counter()
+    finally:
+        dist_launch.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 22 seconds: (a) {t1 - t0:.3f}, (b) and (d) {t2 - t1:.3f}, (c) {t3 - t2:.3f}")
 
 
 def main() -> int:
@@ -4488,6 +4804,8 @@ def main() -> int:
         phase_lm(card)
     with Phase("21 LM training"):
         phase_lm_train(card, _build.BUILD_DIR)
+    with Phase("22 LM on a device mesh"):
+        phase_lm_mesh(card, _build.BUILD_DIR)
 
     # launches on the main paths: the binary runs of phase 4 (rbf_matrix,
     # merge_pick, gss_pick, and merge_scores and gss, now 0) and the

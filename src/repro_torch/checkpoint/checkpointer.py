@@ -20,8 +20,16 @@ checkpoint either package writes loads in the other:
 ``load`` re-hashes every leaf it reads and refuses a corrupt one;
 ``verify_step`` / ``latest_verifiable_step`` / ``restore_latest`` walk back
 past a torn or bit-flipped newest step.  Restored leaves go to the card
-unless the caller passes ``device="cpu"``.  Target shardings wait for the
-distributed layer (ROADMAP.md Queue 1 item 11).
+unless the caller passes ``device="cpu"``.
+
+The format is mesh-free.  A DTensor leaf (a model laid out on a
+``DeviceMesh``) is saved whole: every rank of its mesh gathers it
+(``full_tensor``, a collective), rank 0 alone writes, and every rank waits
+for the write.  ``load`` and ``restore_latest`` take the reference's
+``shardings=``, a tree of ``sharding.specs.NamedSharding`` beside the
+target's leaves (a DTensor target leaf names its own): each such leaf is
+restored onto its mesh at its placements, which need not be the saving
+mesh's.
 """
 from __future__ import annotations
 
@@ -37,6 +45,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from ..sharding.specs import NamedSharding, from_full
 
 _SEP = "/"
 _BF16 = "bfloat16"
@@ -119,14 +131,30 @@ def _step_dir(ckpt_dir: str, step: int) -> str:
 
 def save(ckpt_dir: str, step: int, tree, *, keep_last: int = 3,
          metadata: dict | None = None) -> str:
-    """Atomic synchronous save; returns the final directory path."""
+    """Atomic synchronous save; returns the final directory path.
+
+    With DTensor leaves every rank calls it: each leaf is gathered whole
+    into host memory in turn, rank 0 writes, and a barrier holds every rank
+    until the step is on disk."""
+    flat = _flatten(tree)
+    if not any(isinstance(v, DTensor) for v in flat.values()):
+        return _write(ckpt_dir, step, flat, keep_last, metadata)
+    flat = {k: v.full_tensor().cpu() if isinstance(v, DTensor) else v for k, v in flat.items()}
+    final = _step_dir(ckpt_dir, step)
+    if dist.get_rank() == 0:
+        final = _write(ckpt_dir, step, flat, keep_last, metadata)
+    dist.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, step: int, flat: dict, keep_last: int, metadata) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     final = _step_dir(ckpt_dir, step)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    flat = {k: _to_numpy(v) for k, v in _flatten(tree).items()}
+    flat = {k: _to_numpy(v) for k, v in flat.items()}
     arrays_path = os.path.join(tmp, "arrays.npz")
     np.savez(arrays_path, **{k: arr for k, (arr, _) in flat.items()})
     manifest = {
@@ -244,13 +272,18 @@ def _to_torch(arr: np.ndarray, name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def load(ckpt_dir: str, step: int, target_tree, *, device=None):
+def load(ckpt_dir: str, step: int, target_tree, *, shardings=None, device=None):
     """Restore into the structure of ``target_tree``.
 
     Its leaves are tensors or ``ShapeDtype`` specs; each restored leaf takes
     the target's dtype (a cast, as the reference's ``astype``) and goes to
-    ``device`` (default the card; ``"cpu"`` for the host)."""
+    ``device`` (default the card; ``"cpu"`` for the host).  A leaf with a
+    ``NamedSharding`` in ``shardings`` (a tree beside the target's, None
+    where a leaf has none), or a DTensor target leaf, comes back a DTensor
+    on that mesh at those placements; every rank reads the whole leaf and
+    moves only its own block to the device."""
     dev = torch.device("cuda" if device is None else device)
+    placed = {k: s for k, s in _flatten(shardings).items() if isinstance(s, NamedSharding)}
     stored = _read_arrays(ckpt_dir, step)
     keys = list(_flatten(target_tree))
     missing = [k for k in keys if k not in stored]
@@ -265,7 +298,11 @@ def load(ckpt_dir: str, step: int, target_tree, *, device=None):
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: shape {arr.shape} != target {tuple(ref.shape)}")
         name = leaves.get(key, {}).get("dtype", str(arr.dtype))
-        return _to_torch(arr, name).to(dev, ref.dtype)
+        full = _to_torch(arr, name).to(ref.dtype)
+        shd = placed.get(key)
+        if shd is None and isinstance(ref, DTensor):
+            shd = NamedSharding(ref.device_mesh, tuple(ref.placements))
+        return full.to(dev) if shd is None else from_full(full, shd.mesh, shd.placements)
 
     return _walk(target_tree, restore)
 
@@ -302,7 +339,7 @@ def latest_verifiable_step(ckpt_dir: str) -> int | None:
     return None
 
 
-def restore_latest(ckpt_dir: str, target_tree, *, device=None):
+def restore_latest(ckpt_dir: str, target_tree, *, shardings=None, device=None):
     """``(step, tree)`` of the newest step that verifies; ``(None, None)``
     without any step; ``ValueError`` when steps exist and none verifies."""
     steps = all_steps(ckpt_dir)
@@ -312,4 +349,4 @@ def restore_latest(ckpt_dir: str, target_tree, *, device=None):
     if step is None:
         raise ValueError(f"{ckpt_dir}: checkpoint steps {steps} exist but none verify — "
                          "refusing to restore from corrupt state")
-    return step, load(ckpt_dir, step, target_tree, device=device)
+    return step, load(ckpt_dir, step, target_tree, shardings=shardings, device=device)

@@ -11,10 +11,14 @@ layers in the same order.
 
 ``remat`` recomputes each layer's forward in the backward of a training
 forward (``models.lm.forward``, the reference's ``jax.checkpoint`` of each
-scanned unit).  ``scan_unroll`` and ``seq_shard_attn`` are settings of the
-JAX package's TPU mesh (unrolled scans for cost accounting,
-context-parallel attention).  They stay so that a config compares field by
-field with the reference's; they do nothing on one card.
+scanned unit).  ``seq_shard_attn`` (the batch's mesh axes, e.g.
+``("data",)``) turns on context-parallel attention for a model laid out on
+a ``DeviceMesh``: queries and the residual after an attention layer
+sharded along the sequence over ``model`` (``models.attention.
+seq_sharded``); without a mesh it does nothing.  ``scan_unroll`` is a
+setting of the JAX package's scans (unrolled for cost accounting); it stays
+so that a config compares field by field with the reference's and does
+nothing here.
 """
 from __future__ import annotations
 

@@ -15,7 +15,9 @@ reference's params tree (nested dicts and lists of numpy arrays, as
 for a budgeted KV cache, ``opt_state_from_numpy`` for the optimizer's
 state; the ``*_to_numpy`` functions go back.  ``lm_tree`` and ``lm_flat``
 move a dict of tensors by parameter name to the reference's tree layout
-and back (the trainer's checkpoints).
+and back (the trainer's checkpoints).  A DTensor leaf (a model laid out on
+a ``DeviceMesh``) goes out whole: ``full_tensor``, which every rank of its
+mesh must call.
 """
 from __future__ import annotations
 
@@ -23,10 +25,15 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .core.bsgd import SVMState, resolve_device
 from .core.budgeted_kv import KVBudgetState
 from .core.lookup import MergeLookupTable
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def _from_numpy(a) -> torch.Tensor:
@@ -49,8 +56,7 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray], *, device=None) -> SVMSta
 def state_to_numpy(state: SVMState) -> dict[str, np.ndarray]:
     """``{field: numpy array}`` on the host; bf16 leaves become float32, and
     ``kmat`` is left out when the state has no cache."""
-    return {name: (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
-            for name, t in zip(SVMState._fields, state) if t is not None}
+    return {name: _numpy(t) for name, t in zip(SVMState._fields, state) if t is not None}
 
 
 def table_from_numpy(h, wd) -> MergeLookupTable:
@@ -129,7 +135,8 @@ def _body_names(cfg, flat: Mapping[str, np.ndarray], stack=np.stack) -> dict[str
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
-    return (t.float() if t.dtype == torch.bfloat16 else t).detach().cpu().numpy()
+    t = _whole(t.detach())
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
 def lm_params_from_numpy(cfg, params, *, device=None):

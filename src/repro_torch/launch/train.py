@@ -25,7 +25,10 @@ guard; ``--svm-layout replicated`` or ``slots`` trains one binary problem
 On one process both arms train on one device; under ``torchrun`` every
 rank joins a process group (``launch.dist``): the LM arm trains
 data-parallel (``launch.steps.make_train_step``), the SVM arm runs the
-layout's chunk program (``core.distributed``):
+layout's chunk program (``core.distributed``).  ``train_loop(cfg,
+mesh=make_mesh((2, 4), ("data", "model")), strategy="tp" | "fsdp")``, called
+alike on every rank, lays the model out on a ``DeviceMesh`` instead
+(``sharding.specs``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm_360m --smoke --steps 100
     PYTHONPATH=src python -m repro_torch.launch.train --arch svm_bsgd \\
@@ -48,12 +51,17 @@ EX_TEMPFAIL = 75
 
 def _train_state(cfg, model, opt_state) -> dict:
     """The checkpoint tree, the reference's ``{"params", "opt"}`` layout, in
-    host memory (the scanned layers are stacked there, not on the card)."""
+    host memory (the scanned layers are stacked there, not on the card).  A
+    DTensor is gathered whole a leaf at a time, which every rank of its mesh
+    must call."""
+    from torch.distributed.tensor import DTensor
+
     from ..convert import lm_tree
     from ..train.optimizer import OptState
 
     def host(tensors):
-        return lm_tree(cfg, {k: t.detach().cpu() for k, t in tensors.items()})
+        return lm_tree(cfg, {k: (t.detach().full_tensor() if isinstance(t, DTensor) else
+                                 t.detach()).cpu() for k, t in tensors.items()})
 
     return {"params": host(dict(model.named_parameters())),
             "opt": OptState(step=opt_state.step.cpu(), m=host(opt_state.m),
@@ -62,8 +70,12 @@ def _train_state(cfg, model, opt_state) -> dict:
 
 def _restore(ckpt_dir: str, step: int, cfg, model, opt_state):
     """Load ``step`` into ``model`` and ``opt_state`` in place; returns the
-    state with the checkpoint's step counter."""
+    state with the checkpoint's step counter.  A DTensor takes this rank's
+    block of the stored tensor, at its own placements on its own mesh."""
     import torch
+    from torch.distributed.tensor import DTensor
+
+    from ..sharding.specs import from_full
 
     from .. import checkpoint as ckpt
     from ..convert import lm_flat, lm_tree
@@ -83,7 +95,9 @@ def _restore(ckpt_dir: str, step: int, cfg, model, opt_state):
         for have, tree in ((params, state["params"]), (opt_state.m, state["opt"].m),
                            (opt_state.v, state["opt"].v)):
             for k, t in lm_flat(cfg, tree).items():
-                have[k].copy_(t)
+                dst = have[k]
+                dst.copy_(from_full(t, dst.device_mesh, dst.placements)
+                          if isinstance(dst, DTensor) else t)
     return OptState(step=state["opt"].step.to(opt_state.step.device), m=opt_state.m,
                     v=opt_state.v)
 
@@ -92,7 +106,8 @@ def train_loop(cfg, *, steps: int = 100, batch_size: int = 8, seq_len: int = 128
                ckpt_dir: str | None = None, ckpt_every: int = 25, lr: float = 3e-3,
                step_deadline_s: float | None = None, max_strikes: int = 3, log_every: int = 10,
                seed: int = 0, verbose: bool = True, schedule_total: int | None = None,
-               device=None, group=None, model=None, batch_fn=None) -> dict:
+               device=None, group=None, model=None, batch_fn=None, mesh=None,
+               strategy: str = "tp") -> dict:
     """Train ``cfg``'s model to ``steps`` steps; returns ``{"losses",
     "resumed_from", "final_loss", "bigram_floor", "model", "opt_state",
     "ms_per_step"}``.
@@ -106,7 +121,17 @@ def train_loop(cfg, *, steps: int = 100, batch_size: int = 8, seq_len: int = 128
     from ``(seed + 1, i)``.  The loop reads the device only to log, at a
     deadline's check and at the end (``ms_per_step`` is the wall time a step
     after the first).  ``group``, a process group of W ranks each calling
-    this alike, trains data-parallel; rank 0 alone writes checkpoints."""
+    this alike, trains data-parallel; rank 0 alone writes checkpoints.
+
+    ``mesh``, a ``DeviceMesh`` over every rank (each calling this alike),
+    lays the model out by ``strategy`` (``"tp"`` or ``"fsdp"``,
+    ``sharding.specs``): drawn a parameter at a time on the host and sharded
+    (``init_lm(..., mesh=)``) unless ``model`` is given already laid out,
+    the AdamW moments at the parameters' placements, each step's batch drawn
+    whole on every rank and its rows sharded over the data axes
+    (``make_train_step(..., mesh=)``), and a resume restoring the newest
+    checkpoint onto this mesh, whichever mesh wrote it.  The device is the
+    mesh's."""
     import time
 
     import torch
@@ -119,9 +144,13 @@ def train_loop(cfg, *, steps: int = 100, batch_size: int = 8, seq_len: int = 128
     from ..train.optimizer import AdamW, cosine_schedule
     from .steps import make_train_step
 
+    if mesh is not None:
+        if group is not None:
+            raise ValueError("pass a process group or a mesh, not both")
+        device, group = mesh.device_type, dist.group.WORLD
     dev = resolve_device(device)
     if model is None:
-        model = init_lm(cfg, seed=seed, device=dev)
+        model = init_lm(cfg, seed=seed, device=dev, mesh=mesh, strategy=strategy)
     else:
         have = next(model.parameters()).device
         if have.type != dev.type or dev.index not in (None, have.index):
@@ -141,10 +170,13 @@ def train_loop(cfg, *, steps: int = 100, batch_size: int = 8, seq_len: int = 128
             print(f"[train] resumed from step {latest}", flush=True)
 
     def save(step):
+        if mesh is not None or rank == 0:      # gathering a DTensor takes every rank
+            state = _train_state(cfg, model, opt_state)
         if rank == 0:
-            ckpt.save(ckpt_dir, step, _train_state(cfg, model, opt_state))
+            ckpt.save(ckpt_dir, step, state)
 
-    step_fn = make_train_step(cfg, opt, group=group)
+    step_fn = (make_train_step(cfg, opt, mesh=mesh, strategy=strategy) if mesh is not None
+               else make_train_step(cfg, opt, group=group))
     frames = cfg.input_kind == "frames"
     stream = None if frames or batch_fn else BigramStream(cfg.vocab_size, seed=seed, device=dev)
     fault_at = int(os.environ.get("FAULT_AT_STEP", -1))
@@ -159,7 +191,7 @@ def train_loop(cfg, *, steps: int = 100, batch_size: int = 8, seq_len: int = 128
                      if frames else stream.batch(gen, batch_size, seq_len))
         t0 = time.perf_counter()
         opt_state, loss = step_fn(model, opt_state, batch)
-        losses.append(loss)
+        losses.append(loss if mesh is None else loss.to_local())   # replicated: the whole value
         if step == fault_at:
             print(f"[train] FAULT INJECTION at step {step}", flush=True)
             os._exit(137)

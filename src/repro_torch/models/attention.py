@@ -16,14 +16,14 @@ back to the value dtype; the chunked path in float32 throughout.
 from __future__ import annotations
 
 import torch
-from torch import nn
+from torch.distributed.tensor import DTensor, Partial
 
-from .common import apply_rope, empty_param, rms_norm, trunc_normal_
+from .common import Drawn, apply_rope, empty_param, normal, ones, replicated, rms_norm
 
 NEG = -1e30
 
 
-class Attention(nn.Module):
+class Attention(Drawn):
     """Grouped-query attention with the reference's parameters: ``wq`` (d, h,
     hd), ``wk``/``wv`` (d, hkv, hd), ``wo`` (h, hd, d) and, with qk-norm,
     ``q_norm``/``k_norm`` (hd,)."""
@@ -40,13 +40,11 @@ class Attention(nn.Module):
             self.q_norm = empty_param((hd,), dtype, device, axes=("head",))
             self.k_norm = empty_param((hd,), dtype, device, axes=("head",))
 
-    @torch.no_grad()
-    def init_(self, gen: torch.Generator) -> None:
-        for w in (self.wq, self.wk, self.wv, self.wo):
-            trunc_normal_(w, gen)
+    def init_plan(self) -> list:
+        plan = [(w, normal()) for w in (self.wq, self.wk, self.wv, self.wo)]
         if self.cfg.qk_norm:
-            self.q_norm.fill_(1.0)
-            self.k_norm.fill_(1.0)
+            plan += [(self.q_norm, ones), (self.k_norm, ones)]
+        return plan
 
     def forward(self, x, positions, *, mode: str = "full", cache=None, cache_pos=None):
         """Returns (y, new_cache).  x: (B, S, D); positions: (S,) absolute.
@@ -92,14 +90,25 @@ class Attention(nn.Module):
         else:
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
-            q5 = q.reshape(b, s, hkv, g, hd)
-            if s > cfg.attn_chunk and s % cfg.attn_chunk == 0:
-                ctx = _chunked_sdpa(q5, k, v, positions, causal=causal, window=window,
-                                    scale=scale, chunk=cfg.attn_chunk)
+            q5 = _grouped(q, hkv, g)
+
+            def attend(q5, k, v, q_pos):
+                if s > cfg.attn_chunk and s % cfg.attn_chunk == 0:
+                    return _chunked_sdpa(q5, k, v, positions, causal=causal, window=window,
+                                         scale=scale, chunk=cfg.attn_chunk, q_pos=q_pos)
+                ok = _mask(q_pos, positions, causal, window)
+                bias = torch.where(ok, 0.0, NEG)[None, None]   # (1,1,Sq,S)
+                return _sdpa(q5, k, v, bias, scale)
+
+            seq = seq_sharded(cfg, q5)
+            if seq is None:
+                ctx = attend(q5, k, v, positions)
             else:
-                ok = _mask(positions, positions, causal, window)
-                bias = torch.where(ok, 0.0, NEG)[None, None]   # (1,1,S,S)
-                ctx = _sdpa(q5, k, v, bias, scale)
+                # context parallelism: queries sharded along S over `model`,
+                # keys and values whole along S on every rank of `model`;
+                # the context is gathered for the output projection (torch
+                # 2.11's DTensor will not flatten a sequence-sharded dim)
+                ctx = replicated(_query_blocks(attend, seq(q5, 1), seq(k), seq(v), positions))
             new_cache = None
             if mode == "prefill":
                 new_cache = {"k": k, "v": v,
@@ -107,6 +116,55 @@ class Attention(nn.Module):
 
         y = ctx.reshape(b, s, h * hd) @ self.wo.reshape(h * hd, d)
         return y, new_cache
+
+
+def seq_sharded(cfg, x):
+    """Context parallelism under a mesh (``cfg.seq_shard_attn``, the batch's
+    mesh axes, and ``x`` a DTensor): ``place(t, seq_dim=None)`` lays ``t``
+    out with its batch dim over those axes and ``seq_dim``, if given, over
+    ``model``; None otherwise, so that nothing changes without a mesh."""
+    if cfg.seq_shard_attn is None or not isinstance(x, DTensor):
+        return None
+    from ..sharding.specs import placements
+
+    mesh = x.device_mesh
+
+    def place(t, seq_dim=None):
+        spec = [tuple(cfg.seq_shard_attn)] + [None] * (t.dim() - 1)
+        if seq_dim is not None:
+            spec[seq_dim] = "model"
+        return t.redistribute(mesh, placements(tuple(spec), mesh))
+
+    return place
+
+
+def _query_blocks(attend, q5, k, v, positions):
+    """Context-parallel attention on each rank's blocks: ``q5``'s rows along
+    S (sharded over ``model``) against the whole keys and values of the
+    same batch rows, ``attend(q5, k, v, q_pos)`` on the local tensors with
+    the block's query positions.  The context keeps ``q5``'s placements;
+    each rank's share of the keys' and values' gradients is partial over
+    ``model``."""
+    mesh = q5.device_mesh
+    m = mesh.mesh_dim_names.index("model")
+    n, c = mesh.size(m), mesh.get_local_rank(m)
+    if q5.shape[1] % n:
+        raise ValueError(f"sequence of {q5.shape[1]} does not split over {n} ranks of `model`")
+    kv_grad = tuple(Partial() if i == m else p for i, p in enumerate(k.placements))
+    ctx = attend(q5.to_local(), k.to_local(grad_placements=kv_grad),
+                 v.to_local(grad_placements=kv_grad), positions.chunk(n)[c])
+    return DTensor.from_local(ctx, mesh, q5.placements, run_check=False)
+
+
+def _grouped(q, hkv: int, g: int):
+    """(B, S, H, hd) -> (B, S, Hkv, G, hd).  A DTensor whose heads shard over
+    more ranks than there are KV heads (jamba's 2 over 4) cannot be split so:
+    its heads are gathered first."""
+    if isinstance(q, DTensor) and any(
+            p.is_shard(2) and hkv % q.device_mesh.size(i) for i, p in enumerate(q.placements)):
+        q = replicated(q)
+    b, s, _, hd = q.shape
+    return q.reshape(b, s, hkv, g, hd)
 
 
 def _mask(q_pos, k_pos, causal: bool, window):
@@ -127,11 +185,13 @@ def _sdpa(q5, k, v, bias, scale):
     return torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
 
 
-def _chunked_sdpa(q5, k, v, positions, *, causal, window, scale, chunk):
+def _chunked_sdpa(q5, k, v, positions, *, causal, window, scale, chunk, q_pos=None):
     """Online-softmax attention over key/value chunks of length ``chunk``.
 
-    Self-attention layout: q positions == k positions == ``positions`` (S,).
+    ``positions`` (S,) are the keys', ``q_pos`` the queries' (default the
+    same: self-attention; a block of them under context parallelism).
     Peak activation is O(S * chunk) per head instead of O(S^2)."""
+    q_pos = positions if q_pos is None else q_pos
     b, sq, hkv, g, hd = q5.shape
     sk = k.shape[1]
     hd_v = v.shape[-1]          # MLA: value head dim != qk head dim
@@ -142,7 +202,7 @@ def _chunked_sdpa(q5, k, v, positions, *, causal, window, scale, chunk):
     acc = torch.zeros((b, hkv, g, sq, hd_v), **f32)
     for c0 in range(0, sk, chunk):
         kc, vc, kpc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk], positions[c0:c0 + chunk]
-        bias = torch.where(_mask(positions, kpc, causal, window), 0.0, NEG)   # (Sq, chunk)
+        bias = torch.where(_mask(q_pos, kpc, causal, window), 0.0, NEG)   # (Sq, chunk)
         s = torch.einsum("bqhgd,bkhd->bhgqk", q32, kc.float()) * scale
         s = s + bias[None, None, None, :, :]
         m_new = torch.maximum(m, torch.amax(s, dim=-1))

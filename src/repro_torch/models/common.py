@@ -15,6 +15,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 DRAW_BLOCK = 1 << 28           # float32 elements drawn at once (1 GiB)
 _TRUNC = math.erf(2.0 / math.sqrt(2.0))   # P(|z| < 2) mapped to erf's range
@@ -48,6 +49,64 @@ def trunc_normal_(t: torch.Tensor, gen: torch.Generator, scale: float | None = N
         u.uniform_(-_TRUNC, _TRUNC, generator=gen)
         block.copy_(torch.erfinv(u).mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(scale))
     return t
+
+
+def normal(scale: float | None = None):
+    """An ``init_plan`` fill: ``trunc_normal_`` at ``scale``."""
+    return lambda t, gen: trunc_normal_(t, gen, scale)
+
+
+def ones(t, gen):
+    t.fill_(1.0)
+
+
+def zeros(t, gen):
+    t.zero_()
+
+
+class Drawn(nn.Module):
+    """A module whose weights are drawn by ``init_plan()``: ``(parameter, fill)``
+    pairs in drawing order, ``fill(tensor, generator)`` writing the values in
+    place.  ``init_`` fills the module's own parameters; a sharded init
+    (``sharding.specs.distribute_model``) fills a host tensor a parameter at
+    a time in the same order."""
+
+    def init_plan(self) -> list:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def init_(self, gen: torch.Generator) -> None:
+        for p, fill in self.init_plan():
+            fill(p, gen)
+
+
+def replicated(x, axes=("model",), *, always: bool = False):
+    """``x`` with the mesh dims named in ``axes`` replicated when ``x`` is a
+    DTensor (a gather, or the reduction of a partial result; any partial sum
+    on another dim reduced too), and its gradient at those placements;
+    ``x`` itself otherwise, so a model on one device runs the same ops as
+    without a mesh.  A DTensor already at them passes as it is, unless
+    ``always`` asks for its gradient to be replicated all the same.
+
+    The model calls it where DTensor's own placements fail an op: an
+    embedding lookup on a vocab-sharded table (a masked partial sum that a
+    second consumer cannot reduce, nor a partial gradient go back to), the
+    gather of the gold logit over a vocab-sharded row, and around each
+    matmul of a layer whose residual is sequence-sharded (torch 2.11's
+    DTensor will not flatten a sharded sequence dim, in either pass)."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh, names = x.device_mesh, x.device_mesh.mesh_dim_names
+    places = tuple(Replicate() if n in axes or p.is_partial() else p
+                   for n, p in zip(names, x.placements))
+    if places == tuple(x.placements):
+        if not always:
+            return x
+        out = x
+    else:
+        out = x.redistribute(mesh, places)
+    return DTensor.from_local(out.to_local(grad_placements=places), mesh, places,
+                              run_check=False, shape=out.shape, stride=out.stride())
 
 
 def rms_norm(x, gamma, eps: float = 1e-5):
@@ -87,7 +146,7 @@ def swiglu(x, w_gate, w_up, w_down):
 
 def softmax_xent(logits, labels, weight=None):
     """Mean cross-entropy in float32.  logits: (..., V), labels: (...) int."""
-    logits = logits.float()
+    logits = replicated(logits).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - gold

@@ -27,8 +27,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.bsgd import resolve_device
-from .attention import Attention, init_attn_cache
-from .common import empty_param, rms_norm, softmax_xent, swiglu, trunc_normal_
+from .attention import Attention, init_attn_cache, seq_sharded
+from .common import (Drawn, empty_param, normal, ones, replicated, rms_norm, softmax_xent,
+                     swiglu)
 from .mamba2 import Mamba2, init_mamba_cache
 from .mla import MLA, init_mla_cache
 from .moe import MoE
@@ -38,7 +39,7 @@ def model_dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-class DenseFFN(nn.Module):
+class DenseFFN(Drawn):
     """``w_gate`` (SwiGLU only), ``w_up`` (d, width), ``w_down`` (width, d)."""
 
     def __init__(self, cfg, width: int, dtype, device=None):
@@ -50,10 +51,9 @@ class DenseFFN(nn.Module):
         if self.swiglu:
             self.w_gate = empty_param((d, width), dtype, device, axes=("embed", "ffn"))
 
-    @torch.no_grad()
-    def init_(self, gen: torch.Generator) -> None:
-        for w in ([self.w_gate] if self.swiglu else []) + [self.w_up, self.w_down]:
-            trunc_normal_(w, gen)
+    def init_plan(self) -> list:
+        return [(w, normal()) for w in ([self.w_gate] if self.swiglu else [])
+                + [self.w_up, self.w_down]]
 
     def forward(self, h):
         if self.swiglu:
@@ -61,7 +61,7 @@ class DenseFFN(nn.Module):
         return F.gelu(h @ self.w_up, approximate="tanh") @ self.w_down   # jax.nn.gelu
 
 
-class Layer(nn.Module):
+class Layer(Drawn):
     """One pre-norm layer: ``ln1`` and a mixer (attention, MLA or mamba),
     then, unless the layer is mixer-only, ``ln2`` and an FFN (dense or MoE)."""
 
@@ -82,27 +82,37 @@ class Layer(nn.Module):
         elif self.ffn_kind == "moe":
             self.ffn = MoE(cfg, dtype, device)
 
-    @torch.no_grad()
-    def init_(self, gen: torch.Generator) -> None:
-        self.ln1.fill_(1.0)
-        self.mixer.init_(gen)
+    def init_plan(self) -> list:
+        plan = [(self.ln1, ones)] + self.mixer.init_plan()
         if self.ffn_kind != "none":
-            self.ln2.fill_(1.0)
-            self.ffn.init_(gen)
+            plan += [(self.ln2, ones)] + self.ffn.init_plan()
+        return plan
 
     def forward(self, x, positions, *, mode: str, cache=None, cache_pos=None):
-        h = rms_norm(x, self.ln1, self.cfg.norm_eps)
+        seq = seq_sharded(self.cfg, x) if mode == "full" else None
+        h = self._gathered(rms_norm(x, self.ln1, self.cfg.norm_eps), seq)
         if self.kind == "attn":
             y, new_cache = self.mixer(h, positions, mode=mode, cache=cache, cache_pos=cache_pos)
         else:
             y, new_cache = self.mixer(h, mode=mode, cache=cache)
-        x = x + y
+        x = x + self._gathered(y, seq)
+        if seq is not None and self.kind == "attn":   # the residual sequence-sharded
+            x = seq(x, 1)
         if self.ffn_kind == "none":
             return x, new_cache
-        return x + self.ffn(rms_norm(x, self.ln2, self.cfg.norm_eps)), new_cache
+        y = self.ffn(self._gathered(rms_norm(x, self.ln2, self.cfg.norm_eps), seq))
+        return x + self._gathered(y, seq), new_cache
+
+    @staticmethod
+    def _gathered(t, seq):
+        """Under ``seq_shard_attn`` (``seq`` not None) a matmul's input or output
+        whole over `model`, its gradient too: torch 2.11's DTensor will not
+        flatten the sequence-sharded residual's dim in a matmul, forward or
+        backward.  Otherwise ``t`` itself."""
+        return t if seq is None else replicated(t, always=True)
 
 
-class MTP(nn.Module):
+class MTP(Drawn):
     """DeepSeek-V3's depth-1 multi-token prediction block: ``proj`` (2d, d),
     a ``block`` built as the last layer, ``norm``."""
 
@@ -113,14 +123,11 @@ class MTP(nn.Module):
         self.block = Layer(cfg, cfg.n_layers - 1, dtype, device)
         self.norm = empty_param((cfg.d_model,), dtype, device, axes=("embed",))
 
-    @torch.no_grad()
-    def init_(self, gen: torch.Generator) -> None:
-        trunc_normal_(self.proj, gen)
-        self.block.init_(gen)
-        self.norm.fill_(1.0)
+    def init_plan(self) -> list:
+        return [(self.proj, normal())] + self.block.init_plan() + [(self.norm, ones)]
 
 
-class LM(nn.Module):
+class LM(Drawn):
     """The whole model, every parameter in the reference's dtype (the MoE
     router and mamba's ``A_log``/``dt_bias`` float32, the rest ``cfg.dtype``).
     Built empty; ``init_lm`` draws the weights."""
@@ -147,28 +154,36 @@ class LM(nn.Module):
         if cfg.mtp_depth:
             self.mtp = MTP(cfg, dtype, device)
 
-    @torch.no_grad()
-    def init_(self, gen: torch.Generator) -> None:
-        cfg = self.cfg
+    def init_plan(self) -> list:
+        cfg, plan = self.cfg, []
         if cfg.input_kind == "frames":
-            trunc_normal_(self.frame_proj, gen)
-            trunc_normal_(self.mask_embed, gen, scale=0.02)
-        trunc_normal_(self.embed, gen, scale=cfg.d_model ** -0.5)
-        self.final_norm.fill_(1.0)
+            plan += [(self.frame_proj, normal()), (self.mask_embed, normal(0.02))]
+        plan += [(self.embed, normal(cfg.d_model ** -0.5)), (self.final_norm, ones)]
         if not cfg.tie_embeddings:
-            trunc_normal_(self.lm_head, gen)
+            plan.append((self.lm_head, normal()))
         for layer in self.layers:
-            layer.init_(gen)
+            plan += layer.init_plan()
         if cfg.mtp_depth:
-            self.mtp.init_(gen)
+            plan += self.mtp.init_plan()
+        return plan
 
     def head(self):
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
 
-def init_lm(cfg, *, seed: int = 0, device=None) -> LM:
+def init_lm(cfg, *, seed: int = 0, device=None, mesh=None, strategy: str = "tp") -> LM:
     """An ``LM`` on ``device`` (default the card) with weights drawn from a
-    ``torch.Generator`` on that device seeded with ``seed``."""
+    ``torch.Generator`` on that device seeded with ``seed``.
+
+    With a ``DeviceMesh`` the parameters are DTensors laid out by
+    ``strategy`` on the mesh's device (``sharding.specs.distribute_model``):
+    drawn on the host a parameter at a time from a CPU generator seeded with
+    ``seed``, only each rank's block reaching the device.  On the CPU both
+    draw the same weights."""
+    if mesh is not None:
+        from ..sharding.specs import distribute_model
+
+        return distribute_model(LM(cfg, torch.device("meta")), mesh, strategy, seed=seed)
     dev = resolve_device(device)
     model = LM(cfg, dev)
     gen = torch.Generator(device=dev)
@@ -189,7 +204,7 @@ def _embed_inputs(cfg, model: LM, batch):
             x = torch.where(batch["mask"][..., None], model.mask_embed, x)
         return x
     tok = batch["tokens"] if isinstance(batch, dict) else batch
-    return F.embedding(tok, model.embed)
+    return replicated(F.embedding(tok, model.embed))
 
 
 def _as_pos(cache_pos, device) -> torch.Tensor:
@@ -232,7 +247,7 @@ def forward(cfg, model: LM, batch, *, mode: str = "full", cache=None, cache_pos=
                                    cache=None if cache is None else cache[i], cache_pos=cache_pos)
             new_caches.append(layer_cache)
     hidden = x
-    logits = rms_norm(x, model.final_norm, cfg.norm_eps) @ model.head()
+    logits = replicated(rms_norm(x, model.final_norm, cfg.norm_eps)) @ model.head()
     new_cache = new_caches if mode in ("prefill", "decode") else None
     if return_hidden:
         return logits, new_cache, hidden
@@ -253,11 +268,12 @@ def loss_fn(cfg, model: LM, batch):
         # multi-token prediction (deepseek-v3, depth 1): the hidden state with
         # the embedding of the NEXT token predicts t+2
         mtp = model.mtp
-        emb_next = F.embedding(labels, model.embed)
-        h = torch.cat([rms_norm(hidden, mtp.norm, cfg.norm_eps), emb_next], dim=-1) @ mtp.proj
+        emb_next = replicated(F.embedding(labels, model.embed))
+        h = torch.cat([replicated(rms_norm(hidden, mtp.norm, cfg.norm_eps)), emb_next],
+                      dim=-1) @ mtp.proj
         positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=h.device)
         h, _ = mtp.block(h, positions, mode="full")
-        logits2 = rms_norm(h, model.final_norm, cfg.norm_eps) @ model.head()
+        logits2 = replicated(rms_norm(h, model.final_norm, cfg.norm_eps)) @ model.head()
         labels2 = torch.roll(labels, -1, dims=1)
         w2 = torch.ones(labels2.shape, dtype=torch.float32, device=labels2.device)
         w2[:, -1] = 0.0

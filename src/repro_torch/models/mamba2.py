@@ -13,9 +13,8 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
-from .common import empty_param, rms_norm, trunc_normal_
+from .common import Drawn, empty_param, normal, ones, rms_norm, zeros
 
 
 def _dims(cfg):
@@ -26,7 +25,7 @@ def _dims(cfg):
     return s, d_in, n_heads, conv_ch
 
 
-class Mamba2(nn.Module):
+class Mamba2(Drawn):
     """Separate projections as the reference's: ``in_zx`` (d, 2 d_in),
     ``in_bc`` (d, 2 g n), ``in_dt`` (d, H); the depthwise conv in two segments
     (``conv_wx``/``conv_bx`` over x, ``conv_wbc``/``conv_bbc`` over B and C);
@@ -50,24 +49,12 @@ class Mamba2(nn.Module):
         self.gate_norm = empty_param((d_in,), dtype, device, axes=("inner",))
         self.out = empty_param((d_in, d), dtype, device, axes=("inner", "embed"))
 
-    @torch.no_grad()
-    def init_(self, gen: torch.Generator) -> None:
-        for w in (self.in_zx, self.in_bc, self.in_dt):
-            trunc_normal_(w, gen)
-        trunc_normal_(self.conv_wx, gen, scale=0.5)
-        self.conv_bx.zero_()
-        trunc_normal_(self.conv_wbc, gen, scale=0.5)
-        self.conv_bbc.zero_()
-        n_heads = self.A_log.shape[0]
-        self.A_log.copy_(torch.log(torch.arange(1, n_heads + 1, dtype=torch.float32,
-                                                device=self.A_log.device)))
-        # dt bias so that softplus(dt_bias) spans ~[1e-3, 1e-1]
-        dt0 = torch.empty(n_heads, dtype=torch.float32, device=self.dt_bias.device)
-        dt0 = torch.exp(dt0.uniform_(math.log(1e-3), math.log(1e-1), generator=gen))
-        self.dt_bias.copy_(dt0 + torch.log(-torch.expm1(-dt0)))   # inverse softplus
-        self.D_skip.fill_(1.0)
-        self.gate_norm.fill_(1.0)
-        trunc_normal_(self.out, gen)
+    def init_plan(self) -> list:
+        return [(self.in_zx, normal()), (self.in_bc, normal()), (self.in_dt, normal()),
+                (self.conv_wx, normal(0.5)), (self.conv_bx, zeros),
+                (self.conv_wbc, normal(0.5)), (self.conv_bbc, zeros), (self.A_log, _a_log),
+                (self.dt_bias, _dt_bias), (self.D_skip, ones), (self.gate_norm, ones),
+                (self.out, normal())]
 
     def forward(self, x, *, mode: str = "full", cache=None):
         """Returns (y, new_cache).  cache = {"conv_x": (B,K-1,d_in),
@@ -122,6 +109,17 @@ class Mamba2(nn.Module):
         y = y.reshape(bsz, s, d_in).to(x.dtype)
         y = rms_norm(y * F.silu(z), self.gate_norm, cfg.norm_eps)
         return y @ self.out, new_cache
+
+
+def _a_log(t, gen):
+    t.copy_(torch.log(torch.arange(1, t.shape[0] + 1, dtype=torch.float32, device=t.device)))
+
+
+def _dt_bias(t, gen):
+    """dt bias so that softplus(dt_bias) spans ~[1e-3, 1e-1]."""
+    dt0 = torch.empty(t.shape[0], dtype=torch.float32, device=t.device)
+    dt0 = torch.exp(dt0.uniform_(math.log(1e-3), math.log(1e-1), generator=gen))
+    t.copy_(dt0 + torch.log(-torch.expm1(-dt0)))   # inverse softplus
 
 
 def _per_head(t, per_group: int):

@@ -17,13 +17,12 @@ chunked online softmax of ``attention`` runs with one query per group.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from .attention import NEG, _chunked_sdpa, _mask
-from .common import apply_rope, empty_param, rms_norm, trunc_normal_
+from .common import Drawn, apply_rope, empty_param, normal, ones, rms_norm
 
 
-class MLA(nn.Module):
+class MLA(Drawn):
     """Parameters as the reference's: ``wq_a`` (d, q_lora), ``q_norm``,
     ``wq_b`` (q_lora, h, nope + rope) (or ``wq`` (d, h, nope + rope) without a
     q LoRA), ``wkv_a`` (d, kv_lora + rope), ``kv_norm``, ``wkv_b`` (kv_lora,
@@ -50,18 +49,13 @@ class MLA(nn.Module):
         self.wo = empty_param((h, m.v_head_dim, d), dtype, device,
                               axes=("q_heads", "head", "embed"))
 
-    @torch.no_grad()
-    def init_(self, gen: torch.Generator) -> None:
+    def init_plan(self) -> list:
         if self.cfg.mla.q_lora_rank:
-            trunc_normal_(self.wq_a, gen)
-            self.q_norm.fill_(1.0)
-            trunc_normal_(self.wq_b, gen)
+            plan = [(self.wq_a, normal()), (self.q_norm, ones), (self.wq_b, normal())]
         else:
-            trunc_normal_(self.wq, gen)
-        trunc_normal_(self.wkv_a, gen)
-        self.kv_norm.fill_(1.0)
-        trunc_normal_(self.wkv_b, gen)
-        trunc_normal_(self.wo, gen)
+            plan = [(self.wq, normal())]
+        return plan + [(self.wkv_a, normal()), (self.kv_norm, ones), (self.wkv_b, normal()),
+                       (self.wo, normal())]
 
     def _project_q(self, x):
         cfg, m = self.cfg, self.cfg.mla

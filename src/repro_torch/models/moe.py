@@ -13,12 +13,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
-from .common import empty_param, trunc_normal_
+from .common import Drawn, empty_param, normal
 
 
-class SharedExperts(nn.Module):
+class SharedExperts(Drawn):
     """The always-on experts as one SwiGLU of width ``n_shared * d_expert``."""
 
     def __init__(self, d: int, width: int, dtype, device=None):
@@ -27,16 +26,14 @@ class SharedExperts(nn.Module):
         self.w_up = empty_param((d, width), dtype, device, axes=("embed", "ffn"))
         self.w_down = empty_param((width, d), dtype, device, axes=("ffn", "embed"))
 
-    @torch.no_grad()
-    def init_(self, gen: torch.Generator) -> None:
-        for w in (self.w_gate, self.w_up, self.w_down):
-            trunc_normal_(w, gen)
+    def init_plan(self) -> list:
+        return [(w, normal()) for w in (self.w_gate, self.w_up, self.w_down)]
 
     def forward(self, xf):
         return (F.silu(xf @ self.w_gate) * (xf @ self.w_up)) @ self.w_down
 
 
-class MoE(nn.Module):
+class MoE(Drawn):
     """``router`` (d, E) float32; ``w_gate``/``w_up`` (E, d, f), ``w_down``
     (E, f, d); ``shared`` with ``n_shared``."""
 
@@ -54,12 +51,9 @@ class MoE(nn.Module):
         if m.n_shared:
             self.shared = SharedExperts(d, m.n_shared * m.d_expert, dtype, device)
 
-    @torch.no_grad()
-    def init_(self, gen: torch.Generator) -> None:
-        for w in (self.router, self.w_gate, self.w_up, self.w_down):
-            trunc_normal_(w, gen)
-        if self.cfg.moe.n_shared:
-            self.shared.init_(gen)
+    def init_plan(self) -> list:
+        plan = [(w, normal()) for w in (self.router, self.w_gate, self.w_up, self.w_down)]
+        return plan + (self.shared.init_plan() if self.cfg.moe.n_shared else [])
 
     def forward(self, x):
         """x: (B, S, D) -> (B, S, D)."""
@@ -74,7 +68,8 @@ class MoE(nn.Module):
         # copies land in one extra row that is cut off
         tok_idx = torch.arange(t * k, device=x.device) // k
         buf = torch.zeros((e * c + 1, d), dtype=x.dtype, device=x.device)
-        buf.index_copy_(0, slot, xf.index_select(0, tok_idx))
+        # out of place: a DTensor cannot be copied into a plain buffer in place
+        buf = buf.index_copy(0, slot, xf.index_select(0, tok_idx))
         buf = buf[:e * c].reshape(e, c, d)
 
         # grouped expert SwiGLU

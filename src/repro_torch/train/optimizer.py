@@ -25,6 +25,10 @@ the step, so its results differ; it is not used.  The step counter is a 0-d
 int32 tensor on the parameters' device and a schedule's learning rate is
 computed from it there in float32, so an update reads nothing back to the
 host.
+
+On DTensor parameters (a model laid out on a ``DeviceMesh``) the moments
+take the parameters' placements and the update is shard-local; the global
+norm sums every rank's squares, so clipping binds as in one process.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int,
@@ -51,7 +56,8 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
 
 def global_norm(tree: dict) -> torch.Tensor:
     """sqrt of the sum over every leaf of its float32 sum of squares (leaves in
-    the dict's order)."""
+    the dict's order); over DTensor leaves a replicated DTensor, the sum
+    over every rank's blocks."""
     total = None
     for x in tree.values():
         sq = torch.sum(torch.square(x.float()))
@@ -68,8 +74,7 @@ class OptState(NamedTuple):
 
 
 def _zeros(params: dict) -> dict:
-    return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            for k, p in params.items()}
+    return {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
 
 
 def _step0(params: dict) -> torch.Tensor:
@@ -103,6 +108,10 @@ class AdamW:
     def update(self, grads: dict, state: OptState, params: dict) -> OptState:
         """One AdamW step: ``params``, ``state.m`` and ``state.v`` are written
         in place; returns the state with the new step."""
+        with implicit_replication():        # the step and the schedule are plain tensors
+            return self._update(grads, state, params)
+
+    def _update(self, grads: dict, state: OptState, params: dict) -> OptState:
         step = state.step + 1
         lr = _lr(self.lr, step)
         scale = None
@@ -137,6 +146,10 @@ class SGD:
     @torch.no_grad()
     def update(self, grads: dict, state: OptState, params: dict) -> OptState:
         """One heavy-ball step, ``m = momentum * m + g``, ``p -= lr * m``, in place."""
+        with implicit_replication():
+            return self._update(grads, state, params)
+
+    def _update(self, grads: dict, state: OptState, params: dict) -> OptState:
         step = state.step + 1
         lr = _lr(self.lr, step)
         for name, p in params.items():

@@ -7,23 +7,14 @@ array crosses as numpy.
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.models import lm as jlm
 from repro_torch import convert
 
+from .torch_threads import one_thread  # noqa: F401 (autouse fixture, re-exported)
+
 B, S, STEPS = 2, 16, 8
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the smoke models are tiny, and a busy machine's
-    cores are shared by the suite's workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def np_tree(tree):

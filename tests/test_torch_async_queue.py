@@ -20,6 +20,7 @@ import time
 
 import numpy as np
 import pytest
+from helpers.torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 from repro_torch.core import (AsyncBatchQueue, BatchQueue, ModelBank, MulticlassSVMConfig,
                               QueueFull, ServeDeadline, ServeTimeout, default_buckets,

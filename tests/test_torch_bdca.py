@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 from helpers.invariants import assert_state_parity
+from helpers.torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 import repro.core as jcore
 from repro.core import bdca as jbdca

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from helpers.torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 from repro.core import budget as jbudget
 from repro.core import kernel_cache as jkc

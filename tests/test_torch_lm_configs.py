@@ -10,6 +10,7 @@ reference's, and so do the derived plans (``layer_plan``, ``scan_unit``,
 import dataclasses
 
 import pytest
+from helpers.torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 import repro.configs as jconfigs
 import repro.models as jmodels

@@ -15,6 +15,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from helpers.torch_threads import one_thread  # noqa: F401 (autouse fixture)
 from jax.sharding import AbstractMesh
 from jax.sharding import PartitionSpec as P
 

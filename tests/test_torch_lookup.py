@@ -3,6 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from helpers.torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 from repro.core import lookup as jlookup
 from repro.core import merge_math as jmm

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from helpers.torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 from repro.core import budget as jbudget
 from repro.core.lookup import default_table as jax_default_table

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 from helpers.invariants import assert_state_parity
+from helpers.torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 from repro.core import bsgd as jbsgd
 from repro.core import budget as jbudget

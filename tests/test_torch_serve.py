@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 from helpers.hypothesis_compat import given, settings, st
+from helpers.torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 from repro.core import bsgd as jbsgd
 from repro.core import (export_model as jexport, predict_labels as jlabels,

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from helpers.torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 from repro.core import bsgd as jbsgd
 from repro.core import export_model as jexport, predict_labels as jlabels

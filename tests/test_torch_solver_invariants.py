@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 from helpers.invariants import assert_state_parity, check_cache_invariants, check_integer_state
+from helpers.torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 from repro.core import bsgd as jbsgd
 from repro_torch import convert

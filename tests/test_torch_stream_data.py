@@ -14,6 +14,7 @@ import threading
 
 import numpy as np
 import pytest
+from helpers.torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 import repro.data as jdata
 import repro_torch.data as tdata

@@ -21,6 +21,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from helpers.torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 import repro.core as jcore
 import repro.data as jdata
