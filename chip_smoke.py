@@ -19,7 +19,8 @@ non-zero exit code:
      call part by part, each part as it was before the lean launch path and
      as it is now; and ``rbf_thin``/``rbf_tiled`` on rows holding a NaN or
      an Inf, NaN exactly where the plain version has NaN;
-  4. the main path: ``fit`` for one epoch and ``accuracy`` on an ADULT
+  4. the main path: ``fit`` for one epoch over the first ``MAIN_STEPS``
+     training rows (a ``CUT:`` line) and ``accuracy`` on an ADULT
      stand-in at the LIBSVM a9a training set's size (32,561 x 123, two
      Gaussian blobs from a numpy seed, 20% test split), gamma 2^-7,
      lambda 1e-5, budget 500, batch 1, once with ``method="lookup-wd"``
@@ -175,8 +176,9 @@ non-zero exit code:
      Before the runs, ``rbf_matrix`` over the class bank against its two
      halves: a column's bits do not depend on the bank's width;
  19. the port's five SVM examples (``examples/torch_*.py``) as subprocesses
-     on ``cuda`` (a ``CUT:`` line where the arguments cut the defaults), with
-     ``torch_svm_speedup.py``'s two paper figures on a line of their own;
+     on ``cuda`` (a ``CUT:`` line where the arguments cut the defaults): four
+     at once, sharing the card, then ``torch_svm_speedup.py`` alone, whose
+     two paper figures (timings) go on a line of their own;
  20. the language-model serving path (``launch.serve``, ``models``,
      ``core.budgeted_kv``; no kernel of the port lies on it, as no Pallas
      kernel lies on the reference's), every time and byte count beside the
@@ -213,7 +215,7 @@ non-zero exit code:
      and byte count beside the card's name and power limit: (a)
      ``train_loop`` on ``smollm_360m`` as published (bf16, remat on, seeded
      random weights) at batch 4 x 4,096 (``train_4k``'s length; its global
-     batch of 256 is a pod's, a ``CUT:`` line) for 6 AdamW steps at the
+     batch of 256 is a pod's, a ``CUT:`` line) for 4 AdamW steps at the
      CLI's defaults with a checkpoint at the end: ms a step after the
      first, tokens/s, model TFLOP/s beside the dense bf16 peak, peak device
      bytes, the losses, every loss and parameter finite and every parameter
@@ -242,15 +244,32 @@ non-zero exit code:
      and every updated parameter, and ms a warm step of all three; (b) two
      gloo ranks: first one DTensor all-gather of a CUDA tensor on the card
      (its exit codes printed: it ends the ranks with a signal on torch 2.11),
-     then, on the host's CPU mesh, ``smollm_360m`` at its published widths
-     and depth in fp32, batch 2 x 64 (a ``CUT:`` line), tp on 1 x 2 and
-     fsdp on 2 x 1, one step each: loss and gradients against one process
-     (1e-5 of scale) and each rank's resident bytes of parameters and AdamW
-     moments against one process's, equal to the share the specs give and
-     printed beside the predicted 0.61 and 0.50; (c) the checkpoint written
+     then, on the host's CPU mesh, ``smollm_360m`` at its published widths,
+     ``MESH_CPU_DEPTH`` of its layers, in fp32, batch 2 x 64 (a ``CUT:``
+     line), tp on 1 x 2 and fsdp on 2 x 1, one step each: loss and
+     gradients against one process (1e-5 of scale) and each rank's resident
+     bytes of parameters and AdamW moments against one process's, equal to
+     the share the specs give; (c) the checkpoint written
      on (b)'s 1 x 2 mesh restored onto the card's (1, 1) mesh, array-equal;
      (d) ``seq_shard_attn=("data",)`` on (b)'s 1 x 2 mesh: the loss within
-     1e-4 of the step without it.
+     1e-4 of the step without it;
+ 23. the planner against the card (``launch.roofline``, ``launch.steps.
+     lower_cell``, ``core.distributed.lower_svm_cell``, ``launch.dryrun``):
+     (a) the card's ``nvidia-smi`` name has a ``DeviceSpec`` whose bytes are
+     the card's ``total_memory``; (b) phase 22 (a)'s unsharded step planned
+     on a cuda-typed (1, 1) fake mesh in a child process, then run for
+     real: planned FLOPs equal ``FlopCounterMode``'s count exactly, planned
+     resident bytes equal ``memory_allocated`` within ``PLAN_RESIDENT_TOL``,
+     the planned peak over ``max_memory_allocated`` inside ``PLAN_PEAK_BAND``,
+     and the roofline's ``step_s`` at most ``PLAN_BOUND_SHARE`` of the
+     measured warm step; (c) phase 4's binary lookup-wd step and run (c)'s
+     fused class-axis step with the budget full: planned launches equal the
+     counters' delta of one real step, and each kernel on them returns fake
+     outputs of its real outputs' shapes, dtypes and strides; (d)
+     ``python -m repro_torch.launch.dryrun`` for ``smollm_360m`` x
+     ``train_4k`` and for ``svm_bsgd`` on the 16 x 16 production mesh, each
+     under its own timeout, printing its record.  (b)'s plan and (d)'s two
+     dry runs run as children beside (b)'s and (c)'s work on the card.
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 It imports nothing from the JAX package.  Without a CUDA device, or without
@@ -274,10 +293,15 @@ import torch.distributed
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
-FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+sys.path.insert(0, str(ROOT / "src"))    # the port beside this script (main checks it)
+from repro_torch.kernels import work as kernel_work  # noqa: E402  the kernels' work formulas
+from repro_torch.launch import roofline as rl  # noqa: E402  the card's rates and their sources
+from repro_torch.launch.roofline import H100  # noqa: E402
 N_ROWS, DIM, BUDGET = 32_561, 123, 500
 REPLAY_STEPS = 2_000
+# phase 4's steps a method: cut from the epoch (26,049) for phase 23 (a CUT: line);
+# the CPU path's lookup-wd against gss gap is 0.0006 here (0.0026 at 13,025)
+MAIN_STEPS = 8_192
 PROFILE_STEPS = 100               # cut from 300 for phases 18 and 19 (a CUT: line)
 # the class axis: LIBSVM multi-class mnist's widths and split
 MC_CLASSES, MC_DIM, MC_TRAIN, MC_TEST = 10, 780, 60_000, 10_000
@@ -378,9 +402,11 @@ def us(ms) -> str:
     return "not measured" if ms is None else f"{ms * 1e3:.2f} us"
 
 
-def bound_ms(n_bytes: float, n_flops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def bound_ms(work):
+    """``roofline.bound_s`` on the H100 of a kernel's ``(bytes, operations)``
+    (``kernels.work``), in milliseconds, and what bounds it."""
+    t, by = rl.bound_s(work, H100)
+    return t * 1e3, by
 
 
 def phase_card():
@@ -423,7 +449,7 @@ def check_rbf(ops, ref, shapes, gen):
             err = (got - want).abs().max().item()
             k_ms = time_call(lambda: ops.rbf_matrix(x, y, gamma, impl="cuda"))
             p_ms = time_call(lambda: ref.rbf_matrix(x, y, gamma))
-            b_ms, b_by = bound_ms(*_rbf_work(n, m, d, x.element_size()))
+            b_ms, b_by = bound_ms(kernel_work.rbf_matrix_work(n, m, d, x.element_size()))
             line = (f"rbf_matrix {n}x{m}x{d} {str(dtype)[6:]}: max_abs_err {err:.3e} (tol {tol}) "
                     f"kernel {k_ms * 1e3:.2f} us plain {p_ms * 1e3:.2f} us bound "
                     f"{b_ms * 1e3:.4f} us ({b_by})")
@@ -459,7 +485,7 @@ def rbf_cutover(ref, gen):
             err = (call() - want).abs().max().item()
             check(err <= 1e-5, f"rbf_matrix path={path} n={n} error {err}")
             line += f" {path} device {us(device_ms(call, 'rbf_'))} (err {err:.1e});"
-        b_ms, b_by = bound_ms(*_rbf_work(n, m, d, 4))
+        b_ms, b_by = bound_ms(kernel_work.rbf_matrix_work(n, m, d, 4))
         print(f"{line} bound {b_ms * 1e3:.4f} us ({b_by}); the rule takes "
               f"{'thin' if n <= rbf_kernel.THIN_ROWS else 'tiled'}")
 
@@ -488,16 +514,6 @@ def rbf_nonfinite(ref, gen):
               f"{err:.3e} (tol 1e-5)")
         check(nan_same and err <= 1e-5, f"rbf_matrix {path} on non-finite rows: NaN pattern "
               f"equal {nan_same}, error {err}")
-
-
-def _rbf_work(n, m, d, elem, y_elem=None):
-    """(bytes, operations) of one rbf_matrix call: each operand read once
-    (x's elements ``elem`` bytes, y's ``y_elem``, default the same), the
-    output written once; two a multiply-add of x.y and of the norms, five an
-    output (the epilogue)."""
-    y_elem = elem if y_elem is None else y_elem
-    return (elem * n * d + y_elem * m * d + 4 * n * m,
-            2.0 * n * m * d + 2.0 * (n + m) * d + 5.0 * n * m)
 
 
 def phase_kernels(ops, ref, _build, table):
@@ -532,11 +548,8 @@ def phase_kernels(ops, ref, _build, table):
     l_ms = time_call(lambda: F.grid_sample(img, grid, mode="bilinear", align_corners=True))
     # bytes: the candidate vectors, a_min, the table cells this run touches, both outputs
     g0, g1 = wd_table.shape
-    i0 = torch.clamp(torch.floor(m_coord * (g0 - 1)).long(), 0, g0 - 2)
-    j0 = torch.clamp(torch.floor(k_coord * (g1 - 1)).long(), 0, g1 - 2)
-    cells = torch.cat([i0 * g1 + j0, i0 * g1 + j0 + 1, (i0 + 1) * g1 + j0,
-                       (i0 + 1) * g1 + j0 + 1]).unique().numel()
-    b_ms, b_by = bound_ms(s * (4 + 4 + 1) + 4 + 4 * cells + 2 * 4 * s, 25.0 * s)
+    cells = _table_cells(wd_table, m_coord, k_coord)
+    b_ms, b_by = bound_ms(kernel_work.merge_scores_work(1, s, cells))
     print(f"merge_scores s={s} G={g0}: max_abs_err {err:.3e} (tol 1e-6) argmin_equal {same_argmin} "
           f"invalid>=NO_PARTNER {invalid_ok} kernel {k_ms * 1e3:.2f} us plain {p_ms * 1e3:.2f} us "
           f"grid_sample {l_ms * 1e3:.2f} us (its err vs plain {lib_err:.2e}) "
@@ -575,7 +588,7 @@ def phase_kernels(ops, ref, _build, table):
         flips = int((h != h_p).sum())
         k_ms = time_call(lambda: ops.gss_solve(m_in, k_in, n_iters=n_iters, impl="cuda"))
         p_ms = time_call(lambda: ref.gss(m_in, k_in, n_iters), calls=20)
-        b_ms, b_by = bound_ms(12.0 * s, s * (6.0 + 30.0 * n_iters))
+        b_ms, b_by = bound_ms(kernel_work.gss_work(s, n_iters))
         print(f"gss s={s} n_iters={n_iters}: max_abs_err {err:.3e} (tol 1e-6) differing {flips} "
               f"kernel {k_ms * 1e3:.2f} us plain {p_ms * 1e3:.2f} us bound {b_ms * 1e3:.4f} us "
               f"({b_by})")
@@ -633,8 +646,7 @@ def _pick_bound(alpha, kappa, count, i_min, a_min, table):
     valid = (idx < count[:, None]) & (alpha * a_min[:, None] > 0) & (idx != i_min[:, None])
     m, k = ref.merge_coords(a_min[:, None], alpha, kappa)
     cells = _table_cells(table.wd_table, m[valid], k[valid])
-    n_bytes = 2 * 4 * r * s + r * (4 + 8 + 4) + 4 * cells + 16 * r + r * (8 + 4 + 4)
-    return bound_ms(n_bytes, 25.0 * int(valid.sum()) + 4.0 * r * s) + (cells,)
+    return bound_ms(kernel_work.merge_pick_work(r, s, int(valid.sum()), cells)) + (cells,)
 
 
 def phase_pick(ops, ref, table, gen):
@@ -695,8 +707,7 @@ def _gss_pick_bound(alpha, kappa, count, i_min, a_min, n_iters):
     r, s = alpha.shape
     idx = torch.arange(s, device=alpha.device)
     valid = (idx < count[:, None]) & (alpha * a_min[:, None] > 0) & (idx != i_min[:, None])
-    n_bytes = 2 * 4 * r * s + r * (4 + 8 + 4) + r * (8 + 4 + 4)
-    return bound_ms(n_bytes, (31.0 + 30.0 * n_iters) * int(valid.sum()) + 4.0 * r * s)
+    return bound_ms(kernel_work.gss_pick_work(r, s, int(valid.sum()), n_iters))
 
 
 def phase_gss_pick(ops, ref, gen):
@@ -831,6 +842,9 @@ def adult_standin(make_blobs, train_test_split):
 
 def phase_main(core, ops, data):
     (xtr, ytr), (xte, yte) = data
+    print(f"CUT: phase 4 trains {MAIN_STEPS} of the epoch's {len(xtr)} steps (each method; "
+          f"phase 11's fused binary run the same rows)")
+    xtr, ytr = xtr[:MAIN_STEPS], ytr[:MAIN_STEPS]
     runs = {}
     ops.reset_launch_counts()
     for method in ("lookup-wd", "gss"):
@@ -954,13 +968,8 @@ def _multi_merge_bound(alpha, kappa, a_min, table):
     rows, s = kappa.reshape(-1, kappa.shape[-1]).shape
     a_rows = alpha.reshape(-1, s).repeat_interleave(rows // alpha.reshape(-1, s).shape[0], 0)
     m, k = ref.merge_coords(a_min.reshape(rows, 1), a_rows, kappa.reshape(rows, s))
-    g0, g1 = table.wd_table.shape
-    i0 = torch.clamp(torch.floor(m * (g0 - 1)).long(), 0, g0 - 2)
-    j0 = torch.clamp(torch.floor(k * (g1 - 1)).long(), 0, g1 - 2)
-    cells = torch.cat([i0 * g1 + j0, i0 * g1 + j0 + 1, (i0 + 1) * g1 + j0,
-                       (i0 + 1) * g1 + j0 + 1]).unique().numel()
-    n_bytes = alpha.numel() * 4 + rows * s * (4 + 1) + rows * 4 + 2 * 4 * cells + 2 * 4 * rows * s
-    return bound_ms(n_bytes, 38.0 * rows * s) + (cells,)
+    cells = _table_cells(table.wd_table, m, k)
+    return bound_ms(kernel_work.multi_merge_scores_work(alpha.numel(), rows, s, cells)) + (cells,)
 
 
 def phase_class_kernels(ops, ref, table):
@@ -1149,9 +1158,8 @@ def _choose_bound(alpha, kappa, a_idx, a_min, count, budget, tab):
              & (idx[None, None, :] != a_idx[:, :, None]))
     m, k = ref.merge_coords(a_min[:, :, None], alpha[:, None, :], kappa)
     cells = _table_cells(tab.wd_table, m[valid], k[valid])
-    n_bytes = (4 * c * s + 4 * c * p * s + c * p * (8 + 4) + 4 * c + 4 * cells + 16 * c * p
-               + c * p * (8 + 1 + 1 + 4))
-    return bound_ms(n_bytes, 25.0 * int(valid.sum()) + 4.0 * c * p * s) + (cells,)
+    work = kernel_work.multi_merge_choose_work(c, p, s, int(valid.sum()), cells)
+    return bound_ms(work) + (cells,)
 
 
 def phase_choose(ops, ref, tab, gen):
@@ -1262,17 +1270,19 @@ def _time_event(ops, tab, st, rounds: int = 50, repeats: int = 7):
 
 
 def _event_bound(sv_x, alpha, kmat, count, over, tab):
-    """Least time of one merge_event round on these inputs (``_event_work``)."""
-    return bound_ms(*_event_work(sv_x, alpha, kmat, count, over, tab))
+    """Least time of one merge_event round on these inputs:
+    ``kernel_work.merge_event_work`` of ``_event_parts``."""
+    c, s, d = sv_x.shape
+    cells, n_act, n_over, valid = _event_parts(sv_x, alpha, kmat, count, over, tab)
+    return bound_ms(kernel_work.merge_event_work(c, d, sv_x.element_size(), n_act, n_over, valid,
+                                        cells.numel()))
 
 
 def _event_parts(sv_x, alpha, kmat, count, over, tab):
     """What one merge_event round on these inputs must touch: the unique
     WD-table cells that the valid candidates of all executing classes read
     (a tensor of cell indices), the active slots of the executing classes,
-    the number of executing classes, and the operations: ~25 a valid
-    candidate (coordinates, bilinear mix, score), ~10 an active slot (the
-    argmin and the z row) and 3 a feature (z)."""
+    the number of executing classes and of valid candidates."""
     from repro_torch.kernels import ref
     c, s, d = sv_x.shape
     dev = alpha.device
@@ -1290,56 +1300,31 @@ def _event_parts(sv_x, alpha, kmat, count, over, tab):
                        (i0 + 1) * g1 + j0 + 1]).unique()
     n_over = int(over.sum())
     n_act = int(torch.where(over, count, 0).sum())
-    n_ops = 25.0 * int(valid.sum()) + 10.0 * n_act + 3.0 * d * n_over
-    return cells, n_act, n_over, n_ops
-
-
-def _round_bytes(n_act, n_over, d, sv_bytes):
-    """Bytes of the per-round part of an event: per executing class three
-    cache rows (kappa, partner, last) read and two rows and two columns
-    written over its active slots, three SV rows read and two written, and
-    the four h-table cells at its winner."""
-    return n_act * 4 * (3 + 4) + n_over * (5 * d * sv_bytes + 4 * 4)
-
-
-def _event_work(sv_x, alpha, kmat, count, over, tab):
-    """Bytes and operations of one merge_event round on these inputs: count
-    and over of every class, alpha of each executing class read over its
-    active slots, ``_round_bytes``, and once the WD-table cells of
-    ``_event_parts``."""
-    c, s, d = sv_x.shape
-    cells, n_act, n_over, n_ops = _event_parts(sv_x, alpha, kmat, count, over, tab)
-    n_bytes = (c * (4 + 1) + n_act * 4 + _round_bytes(n_act, n_over, d, sv_x.element_size())
-               + cells.numel() * 4)
-    return n_bytes, n_ops
+    return cells, n_act, n_over, int(valid.sum())
 
 
 def _rounds_work(st, tab, rounds, budget):
-    """Bytes and operations of one merge_event_rounds call on state ``st``
-    (sv_x, alpha, kmat, count, stepped IN PLACE by the plain rounds).  Once a
-    call: count and n_events of every class read and written, alpha of each
-    class over its budget read and written over its active slots, and the
-    union of the WD-table cells that all its rounds read.  Per round that
-    runs, on the state before it: ``_round_bytes`` and the operations of
-    ``_event_parts``."""
+    """``kernel_work.merge_event_rounds_work`` of one merge_event_rounds call on state
+    ``st`` (sv_x, alpha, kmat, count, stepped IN PLACE by the plain rounds):
+    the active slots of the classes over budget at the start, the union of
+    the WD-table cells that all its rounds read, and each round that runs,
+    by ``_event_parts`` of the state before it."""
     from repro_torch.kernels import ref
     sv, al, km, count = st
     c, s, d = sv.shape
-    n_bytes = c * 4 * 4 + 2 * 4 * int(torch.where(count > budget, count, 0).sum())
-    n_ops, cells = 0.0, []
+    n_act = int(torch.where(count > budget, count, 0).sum())
+    per_round, cells = [], []
     for _ in range(rounds):
         over = count > budget
         if not bool(over.any()):
             break
-        round_cells, n_act, n_over, o = _event_parts(sv, al, km, count, over, tab)
-        n_bytes += _round_bytes(n_act, n_over, d, sv.element_size())
-        n_ops += o
+        round_cells, act, n_over, valid = _event_parts(sv, al, km, count, over, tab)
+        per_round.append((act, n_over, valid))
         cells.append(round_cells)
         ref.merge_event(sv, al, km, count, over, tab.h_table, tab.wd_table)
         count -= over.to(count.dtype)
-    if cells:
-        n_bytes += torch.cat(cells).unique().numel() * 4
-    return n_bytes, n_ops
+    n_cells = torch.cat(cells).unique().numel() if cells else 0
+    return kernel_work.merge_event_rounds_work(c, d, sv.element_size(), n_act, per_round, n_cells)
 
 
 def phase_event_rounds(ops, tab, gen):
@@ -1450,7 +1435,7 @@ def _time_rounds(ops, tab, st, n0, budget, err, calls: int = 40, repeats: int = 
     for i in range(calls):
         b, o = _rounds_work([sv, al, km, count], tab, MC_BATCH, budget - MC_BATCH * i)
         n_bytes, n_ops = n_bytes + b, n_ops + o
-    b_ms, b_by = bound_ms(n_bytes / calls, n_ops / calls)
+    b_ms, b_by = bound_ms((n_bytes / calls, n_ops / calls))
     print(f"  merge_event_rounds device time by cluster size: "
           + ", ".join(f"K={k} {us(v)}" for k, v in dms.items()))
     return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1785,17 +1770,13 @@ def _step_bound(args, out, kw):
     sv, alpha, kmat, count, step, nin, nmg, xb, yb, k_bb = args
     c, s, d = sv.shape
     b = xb.shape[0]
-    es = sv.element_size()
     n_new = (out[5] - nin).double()
     retired = (count + out[5] - nin - out[3]).double()
     rounds = (out[6] - nmg).double()
     mid = (count + out[5] - nin).double()
     p = kw["merge_batch"] if kw["maintenance"] == "multi-merge" else 1
-    n_bytes = (c * s * d * es + 2 * c * s * 4 + b * d * 4 + c * b * 4 + b * b * 4 + 7 * c * 4
-               + float((n_new * 2 * mid * 4 + retired * (7 * mid * 4 + 5 * d * es)).sum()))
-    n_ops = (2.0 * c * s * d * (b + 1) + 10.0 * c * b * s
-             + float((rounds * mid * (25.0 * p + 10.0)).sum()))
-    return bound_ms(n_bytes, n_ops)
+    return bound_ms(kernel_work.train_step_work(c, s, d, b, sv.element_size(), *(
+        v.cpu().numpy() for v in (n_new, retired, rounds, mid)), p))
 
 
 def _step_device_ms(ops, tab, args, kw, k, reset_count: bool):
@@ -1950,6 +1931,7 @@ def phase_binary_fused(core, ops, data, composed_acc: float):
     """The binary main path with the fused step (cache, batch 1), one epoch, the
     launch counters set to 0 just before it and read just after."""
     (xtr, ytr), (xte, yte) = data
+    xtr, ytr = xtr[:MAIN_STEPS], ytr[:MAIN_STEPS]     # phase 4's rows, for the gap
     cfg = core.BSGDConfig(budget=BUDGET, lambda_=1e-5, gamma=2.0 ** -7, batch_size=1,
                           use_kernel_cache=True, step_engine="pallas")
     ops.reset_launch_counts()
@@ -2124,17 +2106,6 @@ SERVE_CASE_ROWS = (8, 16, 100, 200)
 SERVE_K_TOL = 1e-5
 
 
-def _serve_cell_work(n, c, s, d, x_elem, bank_elem):
-    """(bytes, operations) of one serve cell (the one class_scores launch): x
-    (n, d), the bank (C s, d) and alpha (C, s) read once, scores (C, n) and
-    labels (n,) written once; two a multiply-add of x.y and of the norms,
-    five an output of K (the epilogue), two a product of the contraction,
-    C - 1 compares a row."""
-    m = c * s
-    return (x_elem * n * d + bank_elem * m * d + 4.0 * (m + c * n + n),
-            2.0 * n * m * d + 2.0 * (n + m) * d + 5.0 * n * m + 2.0 * n * m + n * (c - 1))
-
-
 def _serve_cell_want(ref, rbf_kernel, x, bank, alpha, gamma, binary=False):
     """Today's cell on the card: rbf_tiled's K contracted by the plain version."""
     k = rbf_kernel.rbf_matrix_cuda(x, bank, gamma, path="tiled")
@@ -2288,7 +2259,7 @@ def phase_serve(core, ops, ref, mc, data, run_c):
                            ref.rbf_matrix_rows(x, bank, MC_GAMMA), alpha), calls=2, repeats=3),
                        library_ms=time_call(lambda: torch.einsum("ncs,cs->cn", kv, alpha)),
                        device_ms=device_ms(call, "class_scores"))
-            rec["bound_ms"], rec["bound_by"] = bound_ms(*_serve_cell_work(
+            rec["bound_ms"], rec["bound_by"] = bound_ms(kernel_work.serve_cell_work(
                 n, c, s, MC_DIM, 4, bank.element_size()))
             print(f"class_scores serve cell {n}x({c}, {s})x{MC_DIM} {name} bank: device "
                   f"{us(rec['device_ms'])}, {rec['ms'] * 1e3:.2f} us per call, plain "
@@ -2843,17 +2814,6 @@ def _bdca_state(gen, c, s, counts, dev, C, case="random"):
     return a.to(dev), k.to(dev), n.to(dev)
 
 
-def _bdca_work(kmat_shape, counts, rounds):
-    """``(bytes, operations)`` of one call: the active block of each class's
-    cache read once, alpha read and written, the counts; f = b k (2 n^2)
-    and each sweep's n coordinate updates (~2 n + 8 each)."""
-    c, s, _ = kmat_shape
-    n = np.asarray(counts, dtype=np.float64)
-    n_bytes = float((n * n).sum() * 4 + c * s * 8 + c * 4)
-    n_ops = float((2 * n * n + rounds * n * (2 * n + 8)).sum())
-    return n_bytes, n_ops
-
-
 # SASS opcodes with no destination, and those with two (a predicate first)
 _SASS_NO_DEST = ("ST", "STS", "STG", "STL", "RED", "BAR", "BRA", "BSYNC", "BSSY", "EXIT", "NOP",
                  "WARPSYNC", "CALL", "RET", "MEMBAR", "DEPBAR", "YIELD", "JMP", "BREAK")
@@ -2996,8 +2956,7 @@ def phase_bdca_kernel(ops, ref, _build, card):
             d_ms = device_ms(call, "bdca_ascent")
             p_ms = time_call(lambda: ref.bdca_ascent(a0.clone(), k, n, C, r), calls=1,
                              repeats=3, warmup=1)
-            n_bytes, n_ops = _bdca_work((c, s, s), counts, r)
-            b_ms, b_by = bound_ms(n_bytes, n_ops)
+            b_ms, b_by = bound_ms(kernel_work.bdca_ascent_work(c, s, counts, r))
             chain = max(counts) * r
             per = ("not measured" if d_ms is None or chain == 0
                    else f"{d_ms * 1e6 / chain:.1f} ns")
@@ -3732,37 +3691,64 @@ EXAMPLES = {
 EXAMPLE_TIMEOUT_S = 300
 
 
-def run_example(name: str, args) -> list[str]:
-    """``examples/<name>.py args --device cuda`` as a subprocess; its output
-    lines, printed; fails unless it exits 0."""
-    import os
-
+def start_example(name: str, args):
+    """``examples/<name>.py args --device cuda`` started as a subprocess."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, str(ROOT / "examples" / f"{name}.py"), *args,
-                           "--device", "cuda"], capture_output=True, text=True, env=env,
-                          timeout=EXAMPLE_TIMEOUT_S, cwd=ROOT)
+    proc = subprocess.Popen([sys.executable, str(ROOT / "examples" / f"{name}.py"), *args,
+                             "--device", "cuda"], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+    return proc, time.perf_counter()
+
+
+def finish_example(name: str, started) -> list[str]:
+    """Wait for a ``start_example`` subprocess (killed past
+    ``EXAMPLE_TIMEOUT_S`` from its start); its output lines, printed; fails
+    unless it exits 0."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=max(1.0, EXAMPLE_TIMEOUT_S
+                                                - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
     secs = time.perf_counter() - t0
-    lines = proc.stdout.strip().splitlines()
+    lines = out.strip().splitlines()
     for line in lines:
         print(f"  {name}: {line}")
     if proc.returncode:
-        print(proc.stderr[-4000:])
+        print(err[-4000:])
     check(proc.returncode == 0, f"{name} exited {proc.returncode}")
     print(f"{name} ok in {secs:.3f} s")
     return lines
 
 
+def run_example(name: str, args) -> list[str]:
+    return finish_example(name, start_example(name, args))
+
+
+EXAMPLE_ALONE = "torch_svm_speedup"   # its paper figures are timings: it runs by itself
+
+
 def phase_examples(card):
     print(card)
-    for name, (args, cut) in EXAMPLES.items():
+    for name, (_, cut) in EXAMPLES.items():
         if cut:
             print(f"CUT: {name} runs {cut}")
-        lines = run_example(name, args)
-        if name == "torch_svm_speedup":
-            figures = [ln for ln in lines if ln.startswith("paper figures")]
-            check(len(figures) == 1, "torch_svm_speedup printed no paper figures line")
-            print(figures[0])
+    print(f"CUT: the examples but {EXAMPLE_ALONE} run at once, sharing the card")
+    started = {name: start_example(name, args) for name, (args, _) in EXAMPLES.items()
+               if name != EXAMPLE_ALONE}
+    try:
+        for name, proc in started.items():
+            finish_example(name, proc)
+    finally:
+        for proc, _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    lines = run_example(EXAMPLE_ALONE, EXAMPLES[EXAMPLE_ALONE][0])
+    figures = [ln for ln in lines if ln.startswith("paper figures")]
+    check(len(figures) == 1, f"{EXAMPLE_ALONE} printed no paper figures line")
+    print(figures[0])
 
 
 # Phase 20: language-model serving
@@ -4076,7 +4062,8 @@ def phase_lm(card):
 # Phase 21: language-model training
 # ---------------------------------------------------------------------------
 
-LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 4096, 6      # train_4k's length
+# train_4k's length; 4 steps, cut from 6 for phase 23 (the CUT: line of (a))
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 4096, 4
 LM_REMAT_SEQ = 1024              # the remat on / off peak-bytes comparison
 LM_GRAD_TOL, LM_LOSS_TOL, LM_UPDATE_TOL = 1e-4, 1e-5, 1e-6
 LM_CHECK_BATCH, LM_CHECK_SEQ = 2, 128    # (b): card against CPU
@@ -4084,7 +4071,7 @@ LM_DP_BATCH, LM_DP_TOL = 8, 1e-5         # (e): two ranks, 4 rows each
 LM_PIPE = dict(groups=8, micro=6, rows=4, d=960)   # (e): pipeline_forward
 LM_TRAJ_TOL = 2e-3                       # (d): the reference's resume tolerance
 LM_EXAMPLE_STEPS = 150                   # (c): cut from the example's 300 for phase 22
-BF16_PEAK_FLOPS_PER_S = 989e12           # H100 SXM dense bf16 (NVIDIA data sheet)
+BF16_PEAK_FLOPS_PER_S = H100.bf16_flops  # H100 SXM dense bf16 (NVIDIA data sheet)
 
 
 def _train_flops(cfg, batch: int, seq: int) -> float:
@@ -4429,8 +4416,8 @@ def phase_lm_train(card, build_dir):
 # phase 22: the language models on a DeviceMesh
 MESH_BATCH, MESH_SEQ = 4, 1024          # (a): one card, bf16, remat on
 MESH_CPU_BATCH, MESH_CPU_SEQ = 2, 64    # (b)-(d): two gloo ranks on the host, fp32
+MESH_CPU_DEPTH = 2                       # (b)-(d): cut from 32 layers (a CUT: line)
 MESH_TOL, MESH_SEQ_TOL = 1e-5, 1e-4     # (b) against one process; (d) the reference's gate
-MESH_PREDICTED = {"tp": 0.61, "fsdp": 0.50}   # a rank's share of one process's bytes (PERF.md)
 
 
 def _free_port() -> int:
@@ -4516,6 +4503,12 @@ def _gloo_cuda_child(rank, world, store):
     dist.destroy_process_group()
 
 
+def _mesh_cpu_cfg(configs):
+    """(b)-(d)'s model: the served one at its widths, ``MESH_CPU_DEPTH`` layers, fp32."""
+    return dataclasses.replace(configs.get(LM_SERVE_ARCH), dtype="float32",
+                               n_layers=MESH_CPU_DEPTH)
+
+
 def _mesh_child(rank, world, store, tmp, threads):
     """A rank of phase 22 (b)-(d): two gloo ranks on the host CPU."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -4536,7 +4529,7 @@ def _mesh_child(rank, world, store, tmp, threads):
                      timeout_s=DIST_TIMEOUT_S)
     out = {}
     try:
-        cfg = dataclasses.replace(configs.get(LM_SERVE_ARCH), dtype="float32")
+        cfg = _mesh_cpu_cfg(configs)
         batch = _lm_batch(cfg, MESH_CPU_BATCH, MESH_CPU_SEQ, "cpu")
         opt = SGD(lr=0.0)                        # leaves the weights, m is the gradient
         results = {}
@@ -4637,8 +4630,9 @@ def mesh_two_ranks(configs, card, tmp: Path):
           f"(torch {torch.__version__}): exit codes {codes} (a negative code is the signal "
           f"that ended the rank); the ranks below lay the model out on the host's CPU mesh")
     cfg = configs.get(LM_SERVE_ARCH)
-    print(f"CUT: phase 22 (b)-(d) run {cfg.name} at its published widths and depth in fp32 "
-          f"on two gloo ranks of the host, batch {MESH_CPU_BATCH} x {MESH_CPU_SEQ}")
+    print(f"CUT: phase 22 (b)-(d) run {cfg.name} at its published widths, {MESH_CPU_DEPTH} of "
+          f"its {cfg.n_layers} layers, in fp32 on two gloo ranks of the host, batch "
+          f"{MESH_CPU_BATCH} x {MESH_CPU_SEQ}")
     codes = _spawn_pair(_mesh_child, (str(tmp / "mesh-store"), str(tmp),
                                       max(1, (os.cpu_count() or 2) // 2)), "(b)")
     ranks = [json.loads((tmp / f"mesh-rank{r}.json").read_text()) for r in range(2)]
@@ -4655,7 +4649,7 @@ def mesh_two_ranks(configs, card, tmp: Path):
               f"(tolerance "
               f"{MESH_TOL}); resident bytes of parameters and moments a rank "
               f"{[rk['bytes'][name] for rk in ranks]} against {one:,} in one process: share "
-              f"{[round(x, 4) for x in shares]}, predicted {MESH_PREDICTED[name]}, the specs' "
+              f"{[round(x, 4) for x in shares]}, the specs' "
               f"{r['spec_share']:.4f}; the sharded draw {r['init_s']:.3f} s, the step "
               f"{r['step_s']:.3f} s on the host (its first DTensor call) against "
               f"{r0['one_s']:.3f} s in one process")
@@ -4673,8 +4667,7 @@ def mesh_restore(configs, models, specs, ckpt, mesh, crc: dict, tmp: Path, card)
     """(c) the 1 x 2 mesh's checkpoint restored onto the card's (1, 1) mesh."""
     import zlib
 
-    cfg = dataclasses.replace(configs.get(LM_SERVE_ARCH), dtype="float32")
-    meta = models.LM(cfg, torch.device("meta"))
+    meta = models.LM(_mesh_cpu_cfg(configs), torch.device("meta"))
     shardings = specs.param_shardings(meta, mesh, "tp")
     target = {"params": {k: ckpt.ShapeDtype(tuple(p.shape), p.dtype)
                          for k, p in meta.named_parameters()}}
@@ -4720,6 +4713,279 @@ def phase_lm_mesh(card, build_dir):
         dist_launch.shutdown()
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 22 seconds: (a) {t1 - t0:.3f}, (b) and (d) {t2 - t1:.3f}, (c) {t3 - t2:.3f}")
+
+# phase 23: the planner against the card.  (b)'s cell is phase 22 (a)'s
+# unsharded step; its tolerances and band are stated before the run (PERF.md)
+PLAN_BATCH, PLAN_SEQ = MESH_BATCH, MESH_SEQ
+PLAN_RESIDENT_TOL = 0.01          # planned resident bytes against memory_allocated, relative
+PLAN_PEAK_BAND = (0.75, 1.10)     # planned peak / max_memory_allocated, both less the base
+PLAN_BOUND_SHARE = 1.05           # the roofline's step_s / the measured warm step, at most
+DRYRUN_TIMEOUT_S = 600
+# (b)'s plan, in a child process of its own: a fake group of one rank and a
+# cuda-typed (1, 1) mesh, the cell registered as a shape of PLAN_BATCH rows
+_PLAN_CHILD = """
+import json, sys, time
+import torch
+from repro_torch.configs import SHAPES, get
+from repro_torch.launch import roofline as rl
+from repro_torch.launch.mesh import make_mesh, start_fake_group
+from repro_torch.launch.steps import lower_cell
+arch, batch, seq = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+SHAPES["chip_smoke_train"] = dict(seq_len=seq, global_batch=batch, step="train")
+start_fake_group(1)
+mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+t0 = time.perf_counter()
+cfg = get(arch)
+rec, plan = lower_cell(cfg, "chip_smoke_train", mesh, strategy="tp")
+roof = rl.analyze(rec, arch=arch, shape="chip_smoke_train", mesh=mesh, strategy="tp",
+                  model_flops_global=rl.model_flops(cfg, "chip_smoke_train", SHAPES))
+print("PLAN " + json.dumps(dict(flops=rec.flops, flops_fp32=rec.flops_fp32, arg=rec.arg_bytes,
+                                 peak=rec.peak_bytes, proxy=rec.fused_bytes(), coll=rec.coll,
+                                 step_s=roof.step_s, compute_s=roof.compute_s,
+                                 memory_s=roof.memory_s, dominant=roof.dominant,
+                                 allocated=torch.cuda.memory_allocated(),
+                                 seconds=time.perf_counter() - t0)))
+"""
+
+
+def _tensor_meta(out) -> list:
+    leaves = out if isinstance(out, (tuple, list)) else [out]
+    return [(tuple(t.shape), t.dtype, tuple(t.stride())) for t in leaves
+            if isinstance(t, torch.Tensor)]
+
+
+def plan_card(card):
+    """(a) the card's DeviceSpec."""
+    name = card.split(",")[0].strip()
+    spec = rl.device_spec(name)
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"plan (a) {card}: DeviceSpec {spec}; total_memory {total:,}")
+    check(total == spec.hbm_bytes, f"phase 23 (a): total_memory {total} is not the spec's "
+          f"{spec.hbm_bytes}")
+    return spec
+
+
+def _child(args) -> subprocess.Popen:
+    """A child process of the port (``python`` with ``args``), started now."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+
+
+def _finish(proc: subprocess.Popen, what: str):
+    """A child's (exit code, stdout, stderr, seconds it took from now); killed
+    past ``DRYRUN_TIMEOUT_S``."""
+    t0 = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        print(f"phase 23: {what} killed after {DRYRUN_TIMEOUT_S} s")
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def plan_lm_step(configs, models, steps_mod, optim, card, spec, child):
+    """(b) smollm_360m's unsharded train step: planned on a cuda-typed (1, 1)
+    fake mesh in ``child`` (started beforehand), then run for real."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    code, out, err, _ = _finish(child, "(b)'s plan")
+    lines = [ln for ln in out.splitlines() if ln.startswith("PLAN ")]
+    check(code == 0 and len(lines) == 1,
+          f"phase 23 (b): the plan's child exited {code}: {err[-3000:]}")
+    plan = json.loads(lines[0][5:])
+    print(f"plan (b) {LM_SERVE_ARCH} batch {PLAN_BATCH} x {PLAN_SEQ} planned on a cuda (1, 1) fake "
+          f"mesh in {plan['seconds']:.1f} s: flops {plan['flops']:.6e} (fp32 "
+          f"{plan['flops_fp32']:.3e}), resident {plan['arg']:,} B, peak {plan['peak']:,} B, "
+          f"bytes proxy {plan['proxy']:.4e}, collectives {plan['coll']}, step_s "
+          f"{plan['step_s'] * 1e3:.3f} ms ({plan['dominant']}), device bytes the child "
+          f"allocated {plan['allocated']}")
+    check(plan["allocated"] == 0, "phase 23 (b): the plan allocated device memory")
+    cfg = configs.get(LM_SERVE_ARCH)
+    _free()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = models.init_lm(cfg, seed=SEED, device=LM_DEVICE)
+    opt = optim.AdamW(lr=3e-3)
+    params = dict(model.named_parameters())
+    state = opt.init(params)
+    toks = _lm_tokens(cfg, (PLAN_BATCH, PLAN_SEQ)).to(torch.int32)
+    mask = torch.ones((PLAN_BATCH, PLAN_SEQ), dtype=torch.float32, device=LM_DEVICE)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1), "mask": mask}
+    step = steps_mod.make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    state, loss = step(model, state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    with FlopCounterMode(display=False) as fc:
+        state, loss = step(model, state, batch)
+    torch.cuda.synchronize()
+    flops = fc.get_total_flops()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, loss = step(model, state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    rel = abs(plan["arg"] - resident) / resident
+    ratio = plan["peak"] / peak
+    share = plan["step_s"] * 1e3 / ms
+    print(f"plan (b) against the card ({card}): FLOPs planned {plan['flops']:.6e} counted "
+          f"{flops:.6e} equal {plan['flops'] == flops}; resident planned {plan['arg']:,} "
+          f"allocated {resident:,} (rel {rel:.3e}, tol {PLAN_RESIDENT_TOL}); peak planned "
+          f"{plan['peak']:,} max allocated {peak:,} (ratio {ratio:.4f}, band {PLAN_PEAK_BAND}); "
+          f"step_s {plan['step_s'] * 1e3:.3f} ms against a warm step of {ms:.3f} ms (share "
+          f"{share:.4f}, at most {PLAN_BOUND_SHARE}); loss {float(loss):.6f}")
+    check(plan["flops"] == flops, "phase 23 (b): planned FLOPs differ from the real step's")
+    check(rel <= PLAN_RESIDENT_TOL, f"phase 23 (b): resident bytes off by {rel}")
+    check(PLAN_PEAK_BAND[0] <= ratio <= PLAN_PEAK_BAND[1],
+          f"phase 23 (b): planned peak / real peak {ratio} outside {PLAN_PEAK_BAND}")
+    check(share <= PLAN_BOUND_SHARE, f"phase 23 (b): the bound {plan['step_s']} s exceeds "
+          f"the measured step {ms} ms: counts or constants are wrong")
+    del model, params, state, batch, step
+    _free()
+    return dict(plan=plan, flops=flops, resident=resident, peak=peak, ms=ms)
+
+
+def _planned_step(ops, fn, tensors):
+    """Launch counts of ``fn(*fake copies of tensors)`` planned on fake tensors,
+    and the fake outputs."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import planned
+    from repro_torch.launch.roofline import Counters
+
+    fm = FakeTensorMode(allow_non_fake_inputs=True)
+    fakes = [fm.from_tensor(t) if isinstance(t, torch.Tensor) else t for t in tensors]
+    planned.reset()
+    counters = Counters(fm)
+    with counters, fm:
+        out = fn(*fakes)
+    return {k: v for k, v in ops.planned_counts().items() if v}, counters.trace, out
+
+
+def plan_svm(core, mc, ops, data, lookup_run, run_c, card):
+    """(c) phase 4's binary lookup-wd step and run (c)'s fused class-axis step,
+    each with the budget full: every kernel's fake outputs against its real
+    ones, and the planned launches against the counters' delta."""
+    from repro_torch.kernels import ref
+
+    (xtr, ytr), _ = data
+    dev = torch.device("cuda")
+    run, st, cfg = lookup_run
+    table = cfg.table().to(dev)
+    xb = torch.as_tensor(xtr[:1], device=dev)
+    yb = torch.as_tensor(ytr[:1], device=dev)
+    check(int(st.count) == cfg.budget, "phase 23 (c): the binary state's budget is not full")
+    mres, mst, mcfg = run_c
+    mtab = mcfg.table().to(dev)
+    check(int(mst.count.min()) == mcfg.binary.budget, "phase 23 (c): a class below budget")
+    mx = torch.as_tensor(MC_XTR_PLAN[0], device=dev)
+    my = torch.as_tensor(MC_XTR_PLAN[1], device=dev)
+    cases = {
+        "binary lookup-wd step (phase 4)": (
+            lambda s, x, y: core.train_step(cfg, table, s, x, y), (st, xb, yb)),
+        "fused class-axis step (run (c))": (
+            lambda s, x, y: mc.train_step_multiclass(mcfg, mtab, s, x, y), (mst, mx, my)),
+    }
+    for label, (fn, (state, x, y)) in cases.items():
+        leaves = [t for t in state if t is not None]
+        names = [n for n, t in zip(state._fields, state) if t is not None]
+
+        def rebuild(*ts, names=names, cls=type(state)):
+            *ls, x, y = ts
+            return cls(**dict(zip(names, ls)), **{n: None for n in cls._fields
+                                                  if n not in names})
+
+        planned_launches, trace, _ = _planned_step(
+            ops, lambda *ts: fn(rebuild(*ts), *ts[-2:]), [*leaves, x, y])
+        ops.reset_launch_counts()
+        real = fn(state, x, y)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in ops.launch_counts().items() if v}
+        print(f"plan (c) {label}, budget full: planned launches {planned_launches}, counted "
+              f"{launched}, equal {planned_launches == launched}; planned flops "
+              f"{trace.flops:.4e}, kernel work {trace.kernels} ({card})")
+        check(planned_launches == launched, f"phase 23 (c): {label} planned {planned_launches} "
+              f"launches, the card counted {launched}")
+        del real
+    # each kernel on these paths, its fake outputs against its real ones
+    binary_pick = [st.alpha[None].contiguous(), st.kmat[0:1] if st.kmat is not None
+                   else torch.rand(1, st.alpha.shape[0], device=dev),
+                   st.count.reshape(1), torch.zeros(1, dtype=torch.int64, device=dev),
+                   st.alpha[:1].contiguous()]
+    kernels = {
+        "rbf_matrix (thin, 1 x bank)": (lambda a, b: ops.rbf_matrix(a, b, cfg.gamma),
+                                        [xb, st.sv_x]),
+        "rbf_matrix (tiled, 8 x 8)": (lambda a: ops.rbf_matrix(a, a, MC_GAMMA), [mx]),
+        "merge_pick": (lambda a, k, c, i, m: ops.merge_pick(a, k, c, i, m, table), binary_pick),
+        "train_step": (lambda *t: ops.train_step(
+            *t, mtab, budget=mcfg.binary.budget, lambda_=mcfg.binary.lambda_,
+            gamma=mcfg.binary.gamma, batch_size=MC_BATCH),
+            [mst.sv_x.clone(), mst.alpha.clone(), mst.kmat.clone(), mst.count.clone(),
+             mst.step.clone(), mst.n_inserts.clone(), mst.n_merges.clone(), mx,
+             torch.where(torch.arange(MC_CLASSES, device=dev)[:, None] == my[None, :], 1.0,
+                         -1.0), ref.rbf_matrix(mx, mx, MC_GAMMA)]),
+    }
+    for name, (fn, ts) in kernels.items():
+        _, _, fake_out = _planned_step(ops, fn, ts)
+        real_out = fn(*ts)
+        same = _tensor_meta(fake_out) == _tensor_meta(real_out)
+        print(f"plan (c) {name}: fake outputs {_tensor_meta(fake_out)} equal the real ones' "
+              f"shapes, dtypes and strides {same}")
+        check(same, f"phase 23 (c): {name}'s fake outputs differ from its real ones")
+
+
+DRYRUN_ARGS = (("--arch", LM_SERVE_ARCH, "--shape", "train_4k"), ("--arch", "svm_bsgd"))
+
+
+def plan_dryrun(card, children, t_start):
+    """(d) the dry-run CLI on the 16 x 16 production mesh: ``children``, one for
+    each of ``DRYRUN_ARGS``, started at ``t_start``, each under its own timeout."""
+    for args, child in zip(DRYRUN_ARGS, children):
+        code, out, err, _ = _finish(child, f"dryrun {args}")
+        lines = [ln for ln in out.splitlines() if ln.startswith(("[dryrun]", "  "))]
+        print(f"plan (d) dryrun {' '.join(args)} ({card}): exit {code}, done "
+              f"{time.perf_counter() - t_start:.1f} s after the phase's children started")
+        for ln in lines:
+            print(f"  {ln}")
+        check(code == 0 and any(ln.startswith("[dryrun]") for ln in lines),
+              f"phase 23 (d): dryrun {args} failed: {err[-3000:]}")
+
+
+def phase_plan(card, core, mc, ops, data, lookup_run, run_c, mc_data):
+    from repro_torch import configs, models, train as optim
+    from repro_torch.launch import steps as steps_mod
+
+    global MC_XTR_PLAN
+    MC_XTR_PLAN = (mc_data[0][0][:MC_BATCH], mc_data[0][1][:MC_BATCH])
+    # the three children (b's plan and d's two dry runs) run beside (b)'s and
+    # (c)'s work on the card
+    t0 = time.perf_counter()
+    plan_child = _child(["-c", _PLAN_CHILD, LM_SERVE_ARCH, str(PLAN_BATCH), str(PLAN_SEQ)])
+    dry = [_child(["-m", "repro_torch.launch.dryrun", *args]) for args in DRYRUN_ARGS]
+    try:
+        spec = plan_card(card)
+        plan_lm_step(configs, models, steps_mod, optim, card, spec, plan_child)
+        t1 = time.perf_counter()
+        plan_svm(core, mc, ops, data, lookup_run, run_c, card)
+        t2 = time.perf_counter()
+        plan_dryrun(card, dry, t0)
+        t3 = time.perf_counter()
+    finally:
+        for proc in (plan_child, *dry):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"phase 23 seconds: (a) and (b) {t1 - t0:.3f}, (c) {t2 - t1:.3f}, (d) {t3 - t2:.3f}, "
+          f"whole {t3 - t0:.3f}")
+
+
+MC_XTR_PLAN = None
 
 
 def main() -> int:
@@ -4806,6 +5072,8 @@ def main() -> int:
         phase_lm_train(card, _build.BUILD_DIR)
     with Phase("22 LM on a device mesh"):
         phase_lm_mesh(card, _build.BUILD_DIR)
+    with Phase("23 the planner against the card"):
+        phase_plan(card, core, mc, ops, data, runs["lookup-wd"], fused_runs["c"], mc_data)
 
     # launches on the main paths: the binary runs of phase 4 (rbf_matrix,
     # merge_pick, gss_pick, and merge_scores and gss, now 0) and the

@@ -45,6 +45,7 @@ import torch
 from . import kernel_cache, merge_math
 from .lookup import MergeLookupTable
 from ..kernels import ops as kops
+from ..kernels import planned
 from ..kernels import ref as kref
 
 METHODS = ("gss", "gss-precise", "lookup-h", "lookup-wd")
@@ -496,7 +497,7 @@ def run_maintenance_stacked(sv_x, alpha, kmat, count, n_events, gamma, table, *,
               "quantized": _quantized_all}[strategy]
         sv_x, alpha, kmat, count = fn(sv_x, alpha, kmat, count, budget)
         return sv_x, alpha, kmat, count, n_events + over.to(n_events.dtype)
-    for _ in range(_events(count, budget, unroll)):
+    for _ in _rounds(count, budget, unroll):
         over = count > budget
         if strategy == "merge":
             sv_x, alpha, kmat, count, _ = _merge_once(sv_x, alpha, kmat, count, gamma, method,
@@ -517,7 +518,18 @@ def _events(count, budget: int, unroll: int) -> int:
     ``unroll=e`` bit for bit."""
     if unroll < 0:
         raise ValueError(f"unroll={unroll} < 0")
-    return unroll or int(torch.clamp(count - budget, min=0).max())
+    if unroll or not planned.is_fake(count):
+        return unroll or int(torch.clamp(count - budget, min=0).max())
+    return planned.excess()          # a dry run cannot read the card: the stated count
+
+
+def _rounds(count, budget: int, unroll: int):
+    """The loop over a maintenance call's ``_events`` rounds.  In a dry run (a
+    fake ``count``) one round is traced, standing for all of them
+    (``kernels.planned.rounds``): the rounds are alike in shape."""
+    if planned.is_fake(count):
+        return planned.rounds(_events(count, budget, unroll))
+    return range(_events(count, budget, unroll))
 
 
 def run_maintenance(sv_x, alpha, kmat, count, n_events, gamma, table, *, budget: int,
@@ -541,7 +553,7 @@ def run_maintenance(sv_x, alpha, kmat, count, n_events, gamma, table, *, budget:
     ``merge`` runs the binary event (``_merge_once_binary``); every other
     case runs the class-axis code with C = 1."""
     if strategy == "merge" and kmat is None:
-        for _ in range(_events(count, budget, unroll)):
+        for _ in _rounds(count, budget, unroll):
             over = count > budget
             sv_x, alpha, count, _ = _merge_once_binary(sv_x, alpha, count, gamma, method, table,
                                                        execute=over, impl=impl)

@@ -38,11 +38,13 @@ evenly: a batch that W does not divide raises ``ValueError``, as the
 reference's pjit does.  The collectives take the tensors where they are:
 NCCL works on the card, and gloo takes CUDA tensors too (it copies them
 through pinned host memory inside the collective), so this module stages
-nothing (``launch.dist.pick_backend`` says which backend a run gets).  The
-reference's ``lower_svm_cell`` (an AOT lowering of the TPU production mesh
-for its dry run) has no counterpart.
+nothing (``launch.dist.pick_backend`` says which backend a run gets).
+``lower_svm_cell`` traces one rank's step of a layout on a fake process
+group for the dry run (``launch.dryrun``).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.distributed as dist
@@ -298,3 +300,136 @@ def make_distributed_predict(group, *, impl: str = "auto"):
 
     return predict
 
+
+
+def lower_svm_cell(mesh, *, budget: int = 16384, dim: int = 1024, batch: int = 8192,
+                   method: str = "lookup-wd", layout: str = "replicated", n_classes: int = 8,
+                   stream_steps: int = 0, step: str = "train", maintenance_engine: str = "xla",
+                   step_engine: str = "composed", solver: str = "bsgd",
+                   maintenance: str = "merge"):
+    """Trace rank 0's step of the production-scale BSGD cell once on fake
+    tensors; returns ``(record, cfg)``, the record a ``launch.roofline.Trace``.
+
+    The reference's cell and defaults: budget 16k SVs, 1k features, an
+    8k-row global minibatch, lambda 1e-6, gamma 2^-7, float32 arithmetic and
+    bfloat16 SV rows.  ``mesh`` is a ``DeviceMesh`` over every rank of the
+    running (fake) process group, and the layouts split over all of them (W
+    ranks): ``replicated``, ``slots``, ``class`` (``n_classes`` one-vs-rest
+    problems; a class count W does not divide keeps every class on every
+    rank, as ``make_distributed_step`` does), ``stream_steps > 0`` the
+    chunk program (``make_distributed_chunk_step``), ``step="predict"`` the
+    serve cell (``make_distributed_predict``: the bfloat16 bank on every
+    rank, the request rows split).  ``maintenance_engine``, ``step_engine``,
+    ``solver`` and ``maintenance`` as ``BSGDConfig`` takes them (``bdca``,
+    the fused engines and the projecting strategies imply the kernel cache).
+    The tensors are fake ones on the mesh's device, so each kernel takes its
+    planned branch (``kernels.planned``): on a cuda-typed mesh (which needs
+    torch built with CUDA, else this raises) they are the card's; on a
+    cpu-typed mesh fake CPU tensors stand for the card's
+    (``kernels.planned.for_card``).
+
+    What the trace assumes, stated here and in the record (``scaled``):
+      * the steady state: a full budget, and every row of the minibatch
+        inserted, so a step's maintenance retires ``batch`` SVs.  A step
+        runs ``batch_size`` masked rounds whatever the data (the training
+        step's ``unroll``), and a drain (``unroll=0``), which a real run
+        reads from the card (``core.budget._events``), is stated to run
+        ``batch`` (``kernels.planned.assume_excess``);
+      * the rounds are alike in shape: one is traced and its work counted
+        for every round (``kernels.planned.scaled``), so the trace's time
+        does not grow with the batch;
+      * a chunk's steps likewise: one is traced and counted ``stream_steps``
+        times;
+      * the kernels' work is their formulas' at the steady state (every
+        active slot a valid candidate).
+    """
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ..kernels import planned
+    from ..launch import inputs as inp
+    from ..launch.roofline import Counters
+
+    cfg = BSGDConfig(budget=budget, lambda_=1e-6, gamma=2.0 ** -7, method=method,
+                     batch_size=batch, dtype="float32", sv_dtype="bfloat16",
+                     use_kernel_cache=(solver == "bdca" or maintenance_engine == "pallas"
+                                       or step_engine == "pallas"
+                                       or maintenance in ("removal-project", "quantized")),
+                     maintenance=maintenance, maintenance_engine=maintenance_engine,
+                     step_engine=step_engine, solver=solver)
+    if layout == "class":
+        cfg = MulticlassSVMConfig(n_classes=n_classes, binary=cfg)
+    b = cfg.binary if layout == "class" else cfg
+    group = dist.group.WORLD
+    world = dist.get_world_size(group)
+    if mesh.size() != world:
+        raise ValueError(f"the mesh has {mesh.size()} ranks and the group {world}")
+    dev = mesh.device_type
+    if dev == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a plan on a cuda-typed mesh needs torch built with CUDA; plan on a "
+                           "cpu-typed mesh, whose fake CPU tensors stand for the card's")
+    fm = FakeTensorMode(allow_non_fake_inputs=True)
+    scaled = {"maintenance_rounds": b.batch_size}
+    with fm:
+        if step == "predict":
+            c = n_classes if layout == "class" else None
+            sp = inp.svm_serve_specs(dim, batch, b.slots, n_classes=c,
+                                     bank_dtype=b.sv_dtype or b.dtype, device=dev)
+            model = ServeModel(sv_x=sp["sv_x"], alpha=sp["alpha"], count=sp["count"],
+                               gamma=b.gamma, binary=c is None)
+            fn = make_distributed_predict(group)
+            args = (model, shard_rows(sp["x"], group).clone())
+            scaled = {}
+        else:
+            table = cfg.table()
+            whole = _abstract_state(b, dim, n_classes if layout == "class" else None, dev)
+            state = SVMState(*(None if t is None else t.clone()
+                               for t in shard_state(cfg, whole, group, layout)))
+            del whole
+            steps = max(stream_steps, 1)
+            ch = inp.svm_chunk_specs(dim, steps, batch, n_classes=n_classes if layout == "class"
+                                     else None, x_dtype=b.sv_dtype or b.dtype,
+                                     y_dtype=b.dtype, device=dev)
+            xc, yc = (shard_rows(ch[k], group, dim=1).clone() for k in ("xc", "yc"))
+            if stream_steps > 0:
+                chunk = make_distributed_chunk_step(cfg, group, table, layout=layout)
+                scaled["chunk_steps"] = stream_steps
+
+                def fn(state, xc, yc):
+                    with planned.scaled(stream_steps):
+                        return chunk(state, xc[:1], yc[:1])
+                args = (state, xc, yc)
+            else:
+                fn = make_distributed_step(cfg, group, table, layout=layout)
+                args = (state, xc[0], yc[0])
+    counters = Counters(fm)
+    counters.trace.scaled = scaled
+    card = planned.for_card() if dev == "cpu" else contextlib.nullcontext()
+    with card, planned.assume_excess(b.batch_size), counters, fm:
+        counters.resident([_state_tensors(a) for a in args])
+        out = fn(*args)
+        counters.outputs(_state_tensors(out))
+    return counters.trace, cfg
+
+
+def _abstract_state(b: BSGDConfig, dim: int, n_classes, device) -> SVMState:
+    """``init_state``'s (or, with ``n_classes``, ``init_multiclass_state``'s)
+    shapes and dtypes, empty, on ``device``."""
+    lead = () if n_classes is None else (n_classes,)
+
+    def t(shape, dtype):
+        return torch.empty(lead + shape, dtype=dtype, device=device)
+
+    i32 = torch.int32
+    return SVMState(sv_x=t((b.slots, dim), getattr(torch, b.sv_dtype or b.dtype)),
+                    alpha=t((b.slots,), getattr(torch, b.dtype)), count=t((), i32),
+                    step=t((), i32), n_inserts=t((), i32), n_merges=t((), i32),
+                    kmat=t((b.slots, b.slots), torch.float32) if b.use_kernel_cache else None)
+
+
+def _state_tensors(x):
+    """The tensors of a step's argument or result (a ``ServeModel``'s too)."""
+    if isinstance(x, ServeModel):
+        return [x.sv_x, x.alpha, x.count]
+    if isinstance(x, SVMState):
+        return [t for t in x if t is not None]
+    return x

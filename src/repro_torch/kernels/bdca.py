@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, planned as _planned, work as _work
 
 launches = 0
 MAX_SLOTS = 16_384
@@ -45,11 +45,12 @@ def geometry(s: int) -> tuple[int, int, int]:
     return nq, 32 + -(-bulk // 32) * 32, (staged + 2 * s) * 4
 
 
-def _check(alpha, kmat, count, rounds: int, what: str) -> tuple[int, int, int]:
+def _check(alpha, kmat, count, rounds: int, what: str,
+           planned: bool = False) -> tuple[int, int, int]:
     """The launch's device, classes and slots, after the checks every entry
     point here shares; raises on anything the kernel does not take."""
     dev = alpha.get_device()
-    if dev < 0 or kmat.get_device() != dev or count.get_device() != dev:
+    if not planned and (dev < 0 or kmat.get_device() != dev or count.get_device() != dev):
         raise ValueError(f"{what} needs alpha, kmat and count on one CUDA device")
     if alpha.dtype != torch.float32 or kmat.dtype != torch.float32:
         raise TypeError(f"{what} takes fp32 alpha and kmat, got {alpha.dtype}, {kmat.dtype}")
@@ -70,14 +71,17 @@ def _check(alpha, kmat, count, rounds: int, what: str) -> tuple[int, int, int]:
     return dev, c, s
 
 
-def bdca_ascent_cuda(alpha, kmat, count, C: float, rounds: int):
+def bdca_ascent_cuda(alpha, kmat, count, C: float, rounds: int, *, planned: bool = False):
     """``rounds`` sweeps on the card, alpha updated in place and returned.
 
     alpha: (s,) fp32 with kmat (s, s) fp32 and a 0-d int32 count, or stacked
     (C, s), (C, s, s) and (C,); alpha must be contiguous (it is written in
     place), s <= ``MAX_SLOTS``.  ``C`` is the box, rounded to fp32."""
-    dev, c, s = _check(alpha, kmat, count, rounds, "bdca_ascent_cuda")
+    dev, c, s = _check(alpha, kmat, count, rounds, "bdca_ascent_cuda", planned)
     if c == 0 or s == 0:
+        return alpha
+    if planned:                      # every slot of every class active
+        _planned.record("bdca_ascent", _work.bdca_ascent_work(c, s, [s] * c, rounds))
         return alpha
     nq, threads, _ = geometry(s)
     status = _build.function("bdca_ascent", "bdca_ascent_launch", "pppiifiiip")(

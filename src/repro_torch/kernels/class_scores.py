@@ -18,7 +18,7 @@ import threading
 
 import torch
 
-from . import _build
+from . import _build, planned as _planned, work as _work
 
 launches = 0
 _F32 = torch.float32
@@ -50,7 +50,7 @@ def _tickets(dev: int, stream: int, n: int) -> torch.Tensor:
 
 
 def serve_cell_cuda(x: torch.Tensor, bank: torch.Tensor, alpha: torch.Tensor, gamma: float, *,
-                    binary: bool = False):
+                    binary: bool = False, planned: bool = False):
     """``(scores, labels)`` of the serve cell on the card, in one launch.
 
     x: (n, d) fp32 or bf16 request rows; bank: (C * s, d) fp32 or bf16, the
@@ -59,7 +59,7 @@ def serve_cell_cuda(x: torch.Tensor, bank: torch.Tensor, alpha: torch.Tensor, ga
     or for a binary model (``binary``, C = 1) the fp32 signs of its one
     score."""
     dev = x.get_device()
-    if dev < 0 or bank.get_device() != dev or alpha.get_device() != dev:
+    if not planned and (dev < 0 or bank.get_device() != dev or alpha.get_device() != dev):
         raise ValueError("serve_cell_cuda needs x, bank and alpha on one CUDA device")
     if x.dtype not in _DTYPES or bank.dtype not in _DTYPES or alpha.dtype != _F32:
         raise TypeError(f"serve_cell_cuda takes fp32 or bf16 x and bank and fp32 alpha, got "
@@ -75,6 +75,10 @@ def serve_cell_cuda(x: torch.Tensor, bank: torch.Tensor, alpha: torch.Tensor, ga
     scores = torch.empty((c, n), dtype=_F32, device=x.device)
     labels = torch.empty((n,), dtype=_F32 if binary else torch.int32, device=x.device)
     if n == 0:
+        return scores, labels
+    if planned:
+        _planned.record("class_scores", _work.serve_cell_work(
+            n, c, s, d, x.element_size(), bank.element_size()))
         return scores, labels
     stream = _build.stream(dev)
     status = _build.function("class_scores", "class_scores_launch", "pipippppiiiifip")(

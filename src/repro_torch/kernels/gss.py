@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, planned as _planned, work as _work
 
 launches = 0
 pick_launches = 0
@@ -20,9 +20,10 @@ _F32, _I32, _I64 = torch.float32, torch.int32, torch.int64
 _dense = _build.dense
 
 
-def gss_cuda(m: torch.Tensor, kappa: torch.Tensor, n_iters: int) -> torch.Tensor:
+def gss_cuda(m: torch.Tensor, kappa: torch.Tensor, n_iters: int, *,
+             planned: bool = False) -> torch.Tensor:
     """argmax_h of the merge objective per element; m, kappa fp32 of one shape."""
-    if not m.is_cuda or kappa.device != m.device:
+    if not planned and (not m.is_cuda or kappa.device != m.device):
         raise ValueError("gss_cuda needs m and kappa on one CUDA device")
     if m.dtype != torch.float32 or kappa.dtype != torch.float32:
         raise TypeError("gss_cuda takes fp32 m and kappa")
@@ -34,6 +35,9 @@ def gss_cuda(m: torch.Tensor, kappa: torch.Tensor, n_iters: int) -> torch.Tensor
     h = torch.empty_like(m)
     if m.numel() == 0:
         return h
+    if planned:
+        _planned.record("gss", _work.gss_work(m.numel(), n_iters))
+        return h
     status = _build.function("gss", "gss_launch", "pppiip")(
         m.data_ptr(), kappa.data_ptr(), h.data_ptr(), m.numel(), int(n_iters),
         _build.stream(m.get_device()))
@@ -42,7 +46,7 @@ def gss_cuda(m: torch.Tensor, kappa: torch.Tensor, n_iters: int) -> torch.Tensor
     return h
 
 
-def gss_pick_cuda(alpha, kappa, count, i_min, a_min, n_iters: int):
+def gss_pick_cuda(alpha, kappa, count, i_min, a_min, n_iters: int, *, planned: bool = False):
     """``(j_star, wd_j, h_j)`` of one GSS merge event per row, on the card.
 
     alpha, kappa: (s,) or (R, s) fp32; count: one int32 per row (a binary
@@ -53,7 +57,8 @@ def gss_pick_cuda(alpha, kappa, count, i_min, a_min, n_iters: int):
     (R,) int64 (slot 0 when none is valid), its WD (R,) (3.4e38, ``>=
     NO_PARTNER``, when none is valid) and h* at the winner (R,)."""
     dev = alpha.get_device()
-    if dev < 0 or any(t.get_device() != dev for t in (kappa, count, i_min, a_min)):
+    if not planned and (dev < 0 or any(t.get_device() != dev
+                                       for t in (kappa, count, i_min, a_min))):
         raise ValueError("gss_pick_cuda needs every input on one CUDA device")
     if not (alpha.dtype == kappa.dtype == a_min.dtype == _F32):
         raise TypeError("gss_pick_cuda takes fp32 alpha, kappa and a_min")
@@ -73,6 +78,9 @@ def gss_pick_cuda(alpha, kappa, count, i_min, a_min, n_iters: int):
     j_star = i_min.new_empty(rows)
     wd_j, h_j = a_min.new_empty((2, rows)).unbind(0)
     if rows == 0:
+        return j_star, wd_j, h_j
+    if planned:
+        _planned.record("gss_pick", _work.gss_pick_work(rows, s, rows * (s - 1), n_iters))
         return j_star, wd_j, h_j
     status = _build.function("gss", "gss_pick_launch", "pppppiiipppp")(
         _dense(alpha).data_ptr(), _dense(kappa).data_ptr(), _dense(count).data_ptr(),

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, planned as _planned, work as _work
 
 launches = 0
 rounds_launches = 0
@@ -29,10 +29,11 @@ _SV_DTYPES = (torch.float32, torch.bfloat16)
 CLUSTER = 8
 
 
-def _check_state(what, sv_x, alpha, kmat, count, others, cluster):
+def _check_state(what, sv_x, alpha, kmat, count, others, cluster, planned=False):
     """The checks both entries share; returns ``(C, S, D)``."""
     dev = sv_x.get_device()
-    if dev < 0 or any(t.get_device() != dev for t in (alpha, kmat, count, *others)):
+    if not planned and (dev < 0 or any(t.get_device() != dev
+                                       for t in (alpha, kmat, count, *others))):
         raise ValueError(f"{what} needs every input on one CUDA device")
     if sv_x.dtype not in _SV_DTYPES:
         raise TypeError(f"sv_x must be fp32 or bf16, got {sv_x.dtype}")
@@ -58,7 +59,7 @@ def _check_state(what, sv_x, alpha, kmat, count, others, cluster):
 
 
 def merge_event_cuda(sv_x, alpha, kmat, count, over, h_table, wd_table, decisions=None, *,
-                     cluster: int | None = None):
+                     cluster: int | None = None, planned: bool = False):
     """One event round on the card, in place; returns ``(sv_x, alpha, kmat)``.
 
     sv_x: (C, S, D) fp32 or bf16; alpha: (C, S) fp32; kmat: (C, S, S) fp32,
@@ -68,18 +69,25 @@ def merge_event_cuda(sv_x, alpha, kmat, count, over, h_table, wd_table, decision
     ``(i_min, j_star, merged)``.  ``cluster`` fixes the blocks a class
     (default ``CLUSTER``)."""
     c, s, d = _check_state("merge_event_cuda", sv_x, alpha, kmat, count,
-                           (over, h_table, wd_table), cluster)
+                           (over, h_table, wd_table), cluster, planned)
     if over.dtype != torch.bool:
         raise TypeError(f"over must be bool, got {over.dtype}")
     if over.shape != (c,):
         raise ValueError(f"over (C,) must pair with sv_x {tuple(sv_x.shape)}")
     if decisions is not None and (decisions.shape != (c, 3) or decisions.dtype != torch.int32
-                                  or decisions.get_device() != sv_x.get_device()
+                                  or (decisions.get_device() != sv_x.get_device()
+                                      and not planned)
                                   or not decisions.is_contiguous()):
         raise ValueError("decisions must be a contiguous (C, 3) int32 tensor on the card")
     count, over = count.contiguous(), over.contiguous()
     h_table, wd_table = h_table.contiguous(), wd_table.contiguous()
     if c == 0 or s == 0:
+        return sv_x, alpha, kmat
+    if planned:                      # every class over budget, every slot active
+        g0, g1 = wd_table.shape
+        _planned.record("merge_event", _work.merge_event_work(
+            c, d, sv_x.element_size(), c * s, c, c * (s - 1),
+            _work.table_cells(c * (s - 1), g0, g1)))
         return sv_x, alpha, kmat
     bf16 = sv_x.dtype == torch.bfloat16
     g0, g1 = wd_table.shape
@@ -94,7 +102,8 @@ def merge_event_cuda(sv_x, alpha, kmat, count, over, h_table, wd_table, decision
 
 
 def merge_event_rounds_cuda(sv_x, alpha, kmat, count, n_events, h_table, wd_table, *,
-                            rounds: int, budget: int, cluster: int | None = None):
+                            rounds: int, budget: int, cluster: int | None = None,
+                            planned: bool = False):
     """A step's masked event rounds on the card in one launch, in place.
 
     As ``merge_event_cuda``, with ``count`` and ``n_events`` ((C,) int32,
@@ -102,7 +111,7 @@ def merge_event_rounds_cuda(sv_x, alpha, kmat, count, n_events, h_table, wd_tabl
     events, one while ``count > budget``, then ``count -= 1`` and
     ``n_events += 1``.  Returns ``(sv_x, alpha, kmat, count, n_events)``."""
     c, s, d = _check_state("merge_event_rounds_cuda", sv_x, alpha, kmat, count,
-                           (n_events, h_table, wd_table), cluster)
+                           (n_events, h_table, wd_table), cluster, planned)
     if n_events.dtype != torch.int32:
         raise TypeError(f"n_events must be int32, got {n_events.dtype}")
     if n_events.shape != (c,):
@@ -113,6 +122,12 @@ def merge_event_rounds_cuda(sv_x, alpha, kmat, count, n_events, h_table, wd_tabl
         raise ValueError(f"rounds={rounds} < 1")
     h_table, wd_table = h_table.contiguous(), wd_table.contiguous()
     if c == 0 or s == 0:
+        return sv_x, alpha, kmat, count, n_events
+    if planned:                      # every class over budget each round, every slot active
+        g0, g1 = wd_table.shape
+        _planned.record("merge_event_rounds", _work.merge_event_rounds_work(
+            c, d, sv_x.element_size(), c * s, [(c * s, c, c * (s - 1))] * int(rounds),
+            _work.table_cells(int(rounds) * c * (s - 1), g0, g1)))
         return sv_x, alpha, kmat, count, n_events
     bf16 = sv_x.dtype == torch.bfloat16
     g0, g1 = wd_table.shape

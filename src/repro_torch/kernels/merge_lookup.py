@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, planned as _planned, work as _work
 
 launches = 0
 pick_launches = 0
@@ -25,13 +25,14 @@ _F32, _I32, _I64 = torch.float32, torch.int32, torch.int64
 _dense = _build.dense
 
 
-def merge_scores_cuda(alpha, kappa_row, valid, a_min, table):
+def merge_scores_cuda(alpha, kappa_row, valid, a_min, table, *, planned: bool = False):
     """``(wd, interp)`` of the shape of ``alpha`` for candidates ``alpha``/``kappa_row``/
     ``valid`` of one shape (..., s), fixed-partner coefficients ``a_min`` (one
     fp32 per row of s, any shape, on the same device) and ``table`` (G0, G1)
     fp32.  Invalid slots get WD 3.4e38."""
     dev = alpha.get_device()
-    if dev < 0 or any(t.get_device() != dev for t in (kappa_row, valid, a_min, table)):
+    if not planned and (dev < 0 or any(t.get_device() != dev
+                                       for t in (kappa_row, valid, a_min, table))):
         raise ValueError("merge_scores_cuda needs every input on one CUDA device")
     if not (alpha.dtype == kappa_row.dtype == a_min.dtype == table.dtype == _F32):
         raise TypeError("merge_scores_cuda takes fp32 alpha, kappa_row, a_min and table")
@@ -49,6 +50,11 @@ def merge_scores_cuda(alpha, kappa_row, valid, a_min, table):
     wd, interp = out.unbind(0)
     if n == 0:
         return wd, interp
+    if planned:
+        g = table.shape
+        _planned.record("merge_scores", _work.merge_scores_work(
+            n // s, s, _work.table_cells(n, g[0], g[1])))
+        return wd, interp
     status = _build.function("merge_lookup", "merge_scores_launch", "pppppiiiippp")(
         _dense(alpha).data_ptr(), _dense(kappa_row).data_ptr(), _dense(valid).data_ptr(),
         _dense(a_min).data_ptr(), _dense(table).data_ptr(), table.shape[0], table.shape[1], n, s,
@@ -58,7 +64,8 @@ def merge_scores_cuda(alpha, kappa_row, valid, a_min, table):
     return wd, interp
 
 
-def merge_pick_cuda(alpha, kappa, count, i_min, a_min, wd_table, h_table):
+def merge_pick_cuda(alpha, kappa, count, i_min, a_min, wd_table, h_table, *,
+                    planned: bool = False):
     """``(j_star, wd_j, h_j)`` of one Lookup-WD event per row, on the card.
 
     alpha, kappa: (s,) or (R, s) fp32; count: one int32 per row (a binary
@@ -69,8 +76,8 @@ def merge_pick_cuda(alpha, kappa, count, i_min, a_min, wd_table, h_table):
     scores (R,) int64 (slot 0 when none is valid), its score (R,) (3.4e38,
     ``>= NO_PARTNER``, when none is valid) and the h table at the winner (R,)."""
     dev = alpha.get_device()
-    if dev < 0 or any(t.get_device() != dev
-                      for t in (kappa, count, i_min, a_min, wd_table, h_table)):
+    if not planned and (dev < 0 or any(t.get_device() != dev
+                                       for t in (kappa, count, i_min, a_min, wd_table, h_table))):
         raise ValueError("merge_pick_cuda needs every input on one CUDA device")
     if not (alpha.dtype == kappa.dtype == a_min.dtype == wd_table.dtype == h_table.dtype == _F32):
         raise TypeError("merge_pick_cuda takes fp32 alpha, kappa, a_min and tables")
@@ -91,6 +98,11 @@ def merge_pick_cuda(alpha, kappa, count, i_min, a_min, wd_table, h_table):
     j_star = i_min.new_empty(rows)
     wd_j, h_j = a_min.new_empty((2, rows)).unbind(0)
     if rows == 0:
+        return j_star, wd_j, h_j
+    if planned:
+        valid = rows * (s - 1)
+        _planned.record("merge_pick", _work.merge_pick_work(
+            rows, s, valid, _work.table_cells(valid, g0, g1)))
         return j_star, wd_j, h_j
     status = _build.function("merge_lookup", "merge_pick_launch", "pppppppiiiipppp")(
         _dense(alpha).data_ptr(), _dense(kappa).data_ptr(), _dense(count).data_ptr(),

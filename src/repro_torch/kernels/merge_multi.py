@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, planned as _planned, work as _work
 
 launches = 0
 choose_launches = 0
@@ -26,15 +26,16 @@ _STATIC_SMEM = 2_048           # bound on the choose kernel's static shared memo
 _dense = _build.dense
 
 
-def multi_merge_scores_cuda(alpha, kappa_rows, valid, a_min, h_table, wd_table):
+def multi_merge_scores_cuda(alpha, kappa_rows, valid, a_min, h_table, wd_table, *,
+                            planned: bool = False):
     """``(wd, h)`` of the shape of ``kappa_rows`` on the card.
 
     kappa_rows, valid: (..., s), R rows of s; alpha: (..., s) with A rows, R a
     multiple of A (row r reads alpha row ``r // (R // A)``); a_min: R fp32;
     tables: (G0, G1) fp32 of one shape.  Invalid slots get WD 3.4e38."""
     dev = alpha.get_device()
-    if dev < 0 or any(t.get_device() != dev
-                      for t in (kappa_rows, valid, a_min, h_table, wd_table)):
+    if not planned and (dev < 0 or any(t.get_device() != dev
+                                       for t in (kappa_rows, valid, a_min, h_table, wd_table))):
         raise ValueError("multi_merge_scores_cuda needs every input on one CUDA device")
     if not (alpha.dtype == kappa_rows.dtype == a_min.dtype == h_table.dtype == wd_table.dtype
             == _F32):
@@ -55,6 +56,10 @@ def multi_merge_scores_cuda(alpha, kappa_rows, valid, a_min, h_table, wd_table):
         raise ValueError("the two tables must share one shape of at least 2 x 2")
     out = kappa_rows.new_empty((2, *shape))
     wd, h = out.unbind(0)
+    if planned:
+        _planned.record("multi_merge_scores", _work.multi_merge_scores_work(
+            alpha.numel(), rows, s, _work.table_cells(rows * s, g0, g1)))
+        return wd, h
     status = _build.function("merge_multi", "multi_merge_scores_launch", "pipppppiiiippp")(
         _dense(alpha).data_ptr(), rows // n_alpha, _dense(kappa_rows).data_ptr(),
         _dense(valid).data_ptr(), _dense(a_min).data_ptr(), _dense(h_table).data_ptr(),
@@ -66,7 +71,7 @@ def multi_merge_scores_cuda(alpha, kappa_rows, valid, a_min, h_table, wd_table):
 
 
 def multi_merge_choose_cuda(alpha, kappa_rows, a_idx, a_min, count, budget: int, h_table,
-                            wd_table):
+                            wd_table, *, planned: bool = False):
     """One multi-merge event's scoring and greedy pair choice per class, on the card.
 
     alpha: (C, s) fp32; kappa_rows: (C, P, s) fp32, the fixed partners' kernel
@@ -79,8 +84,9 @@ def multi_merge_choose_cuda(alpha, kappa_rows, a_idx, a_min, count, budget: int,
     partner, falls back to removal (bool, bool), and the h table at its
     partner (fp32), as ``kernels.ref.multi_merge_choose`` computes them."""
     dev = alpha.get_device()
-    if dev < 0 or any(t.get_device() != dev
-                      for t in (kappa_rows, a_idx, a_min, count, h_table, wd_table)):
+    if not planned and (dev < 0 or any(t.get_device() != dev
+                                       for t in (kappa_rows, a_idx, a_min, count, h_table,
+                                                 wd_table))):
         raise ValueError("multi_merge_choose_cuda needs every input on one CUDA device")
     if not (alpha.dtype == kappa_rows.dtype == a_min.dtype == h_table.dtype == wd_table.dtype
             == _F32):
@@ -109,6 +115,11 @@ def multi_merge_choose_cuda(alpha, kappa_rows, a_idx, a_min, count, budget: int,
     b_idx, h_star = a_idx.new_empty((c, p)), a_min.new_empty((c, p))
     merged, execute = a_idx.new_empty((2, c, p), dtype=torch.bool).unbind(0)
     if n == 0:
+        return b_idx, merged, execute, h_star
+    if planned:
+        valid = n * (s - 1)
+        _planned.record("multi_merge_choose", _work.multi_merge_choose_work(
+            c, p, s, valid, _work.table_cells(valid, g0, g1)))
         return b_idx, merged, execute, h_star
     status = _build.function("merge_multi", "multi_merge_choose_launch", "pppppippiiiiippppp")(
         _dense(alpha).data_ptr(), _dense(kappa_rows).data_ptr(), _dense(a_idx).data_ptr(),

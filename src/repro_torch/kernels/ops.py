@@ -7,18 +7,26 @@
   * ``"ref"``  — the plain version, on whatever device the tensors are.
 
 A CUDA tensor under ``"auto"`` launches its kernel or raises: nothing falls
-back to the plain version.  ``launch_counts()`` reads each kernel's launch
-counter; ``reset_launch_counts()`` sets them to 0.
+back to the plain version.  A ``FakeTensor`` on a CUDA device (a dry run,
+``launch.roofline``) takes the kernel's planned branch instead
+(``kernels.planned``): its outputs allocated as a launch allocates them, its
+work recorded, nothing launched; ``_use_kernel`` decides it once a call.  So
+does a fake CPU tensor inside ``planned.for_card()``, which stands for the
+card's where torch has no CUDA (a fake CUDA tensor there cannot be indexed).
+``launch_counts()`` reads each kernel's launch counter;
+``reset_launch_counts()`` sets them to 0; ``planned_counts()`` reads the
+planned launches.
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from . import bdca as bdca_kernel
 from . import class_scores as class_scores_kernel
 from . import gss as gss_kernel
 from . import merge_event as merge_event_kernel
-from . import merge_lookup, merge_multi, rbf_kernel, ref
+from . import merge_lookup, merge_multi, planned, rbf_kernel, ref
 from . import train_step as train_step_kernel
 
 IMPLS = ("auto", "cuda", "ref")
@@ -35,12 +43,22 @@ _KERNELS = {"rbf_matrix": (rbf_kernel, "launches"), "merge_scores": (merge_looku
             "bdca_ascent": (bdca_kernel, "launches")}
 
 
-def _use_kernel(impl: str, t: torch.Tensor) -> bool:
+# what _use_kernel returns for a fake tensor on a CUDA device (truthy)
+PLAN = "plan"
+
+
+def _use_kernel(impl: str, t: torch.Tensor):
+    """False for the plain version, True to launch the kernel, ``PLAN`` for
+    its planned branch (a fake tensor on a CUDA device)."""
     if impl not in IMPLS:
         raise ValueError(f"impl={impl!r} not in {IMPLS}")
     if impl == "cuda" and not t.is_cuda:
         raise ValueError("impl='cuda' needs tensors on a CUDA device")
-    return impl == "cuda" or (impl == "auto" and t.is_cuda)
+    if impl == "cuda" or (impl == "auto" and t.is_cuda):
+        return PLAN if isinstance(t, FakeTensor) else True
+    if impl == "auto" and planned.FOR_CARD[0] and isinstance(t, FakeTensor):
+        return PLAN                  # a plan of the card where there is none
+    return False
 
 
 def launch_counts() -> dict[str, int]:
@@ -52,10 +70,17 @@ def reset_launch_counts() -> None:
         setattr(mod, counter, 0)
 
 
+def planned_counts() -> dict[str, int]:
+    """Each kernel's planned launches (fake tensors), kept apart from
+    ``launch_counts()``."""
+    return {name: planned.launches.get(name, 0) for name in _KERNELS}
+
+
 def rbf_matrix(x, y, gamma, *, impl: str = "auto"):
     """K[i, j] = exp(-gamma ||x_i - y_j||^2); x (n, d), y (m, d) -> (n, m) fp32."""
-    if _use_kernel(impl, x):
-        return rbf_kernel.rbf_matrix_cuda(x, y, gamma)
+    k = _use_kernel(impl, x)
+    if k:
+        return rbf_kernel.rbf_matrix_cuda(x, y, gamma, planned=k is PLAN)
     return ref.rbf_matrix(x, y, gamma)
 
 
@@ -68,12 +93,14 @@ def rbf_per_class(x, y, gamma, *, impl: str = "auto"):
     uncached class-axis paths call it (kappa rows of ``merge`` and
     ``multi-merge`` without the kernel cache); the cached ones read their
     rows from the cache."""
-    if not _use_kernel(impl, x):
+    use = _use_kernel(impl, x)
+    if not use:
         return ref.rbf_matrix(x, y, gamma)
     c, n, d = x.shape
     if c == 1:
-        return rbf_kernel.rbf_matrix_cuda(x[0], y[0], gamma)[None]
-    k = rbf_kernel.rbf_matrix_cuda(x.reshape(c * n, d), y.reshape(-1, d), gamma)
+        return rbf_kernel.rbf_matrix_cuda(x[0], y[0], gamma, planned=use is PLAN)[None]
+    k = rbf_kernel.rbf_matrix_cuda(x.reshape(c * n, d), y.reshape(-1, d), gamma,
+                                   planned=use is PLAN)
     ar = torch.arange(c, device=x.device)
     return k.view(c, n, c, -1)[ar, :, ar]
 
@@ -85,9 +112,10 @@ def rbf_row(sv_x, x, gamma, *, impl: str = "auto"):
     On the card this is the matmul-form kernel with n = 1 (as the reference
     does on the TPU); on the CPU the direct-difference form (as the
     reference does off the TPU)."""
-    if _use_kernel(impl, sv_x):
+    k = _use_kernel(impl, sv_x)
+    if k:
         if sv_x.dim() == 2:
-            return rbf_kernel.rbf_matrix_cuda(x.reshape(1, -1), sv_x, gamma)[0]
+            return rbf_kernel.rbf_matrix_cuda(x.reshape(1, -1), sv_x, gamma, planned=k is PLAN)[0]
         return rbf_per_class(x[:, None, :], sv_x, gamma, impl=impl)[:, 0]
     return ref.rbf_row(sv_x, x, gamma)
 
@@ -113,9 +141,10 @@ def serve_cell(x, sv_x, alpha, gamma, *, binary: bool = False, impl: str = "auto
     ``ref.rbf_matrix_rows`` then ``ref.class_scores_labels``."""
     c, slots, d = sv_x.shape
     bank = sv_x.reshape(c * slots, d)
-    if _use_kernel(impl, x):
+    k = _use_kernel(impl, x)
+    if k:
         return class_scores_kernel.serve_cell_cuda(x, bank, alpha.float(), gamma,
-                                                   binary=binary)
+                                                   binary=binary, planned=k is PLAN)
     return ref.class_scores_labels(ref.rbf_matrix_rows(x, bank, gamma), alpha, binary=binary)
 
 
@@ -128,8 +157,10 @@ def merge_scores(alpha, kappa_row, valid, a_min, table, *, impl: str = "auto"):
     ``wd = (a_min + alpha)^2 * interp`` at valid slots, and a value >=
     ``ref.NO_PARTNER`` at invalid ones (+inf on the plain path, 3.4e38 from
     the kernel)."""
-    if _use_kernel(impl, alpha):
-        return merge_lookup.merge_scores_cuda(alpha, kappa_row, valid, a_min, table)
+    k = _use_kernel(impl, alpha)
+    if k:
+        return merge_lookup.merge_scores_cuda(alpha, kappa_row, valid, a_min, table,
+                                              planned=k is PLAN)
     a = a_min.reshape(-1, 1) if alpha.dim() == 2 else a_min
     wd = ref.merge_scores(alpha, kappa_row, valid, a, table)
     m, kap = ref.merge_coords(a, alpha, kappa_row)
@@ -138,8 +169,9 @@ def merge_scores(alpha, kappa_row, valid, a_min, table, *, impl: str = "auto"):
 
 def gss_solve(m, kappa, *, n_iters: int, impl: str = "auto"):
     """argmax_h of the merge objective for (m, kappa) of any one shape."""
-    if _use_kernel(impl, m):
-        return gss_kernel.gss_cuda(m.float(), kappa.float(), n_iters)
+    k = _use_kernel(impl, m)
+    if k:
+        return gss_kernel.gss_cuda(m.float(), kappa.float(), n_iters, planned=k is PLAN)
     return ref.gss(m, kappa, n_iters)
 
 
@@ -153,8 +185,10 @@ def gss_pick(alpha, kappa, count, i_min, a_min, *, n_iters: int, impl: str = "au
     WD (``>= ref.NO_PARTNER`` when none is valid: the removal fallback) and
     ``h_j`` h* at the winner.  On the card one ``gss_pick`` launch; the
     plain version is ``ref.gss_pick``."""
-    if _use_kernel(impl, alpha):
-        return gss_kernel.gss_pick_cuda(alpha, kappa, count, i_min, a_min, n_iters)
+    k = _use_kernel(impl, alpha)
+    if k:
+        return gss_kernel.gss_pick_cuda(alpha, kappa, count, i_min, a_min, n_iters,
+                                        planned=k is PLAN)
     return ref.gss_pick(alpha, kappa, count, i_min, a_min, n_iters)
 
 
@@ -170,9 +204,10 @@ def merge_pick(alpha, kappa, count, i_min, a_min, table, *, impl: str = "auto"):
     (``>= ref.NO_PARTNER`` when none is valid: the removal fallback) and
     ``h_j`` the h table at the winner.  On the card one ``merge_pick``
     launch; the plain version is ``ref.merge_pick``."""
-    if _use_kernel(impl, alpha):
+    k = _use_kernel(impl, alpha)
+    if k:
         return merge_lookup.merge_pick_cuda(alpha, kappa, count, i_min, a_min, table.wd_table,
-                                            table.h_table)
+                                            table.h_table, planned=k is PLAN)
     return ref.merge_pick(alpha, kappa, count, i_min, a_min, table.wd_table, table.h_table)
 
 
@@ -185,9 +220,11 @@ def multi_merge_scores(alpha, kappa_rows, valid, a_min, table, *, impl: str = "a
     with class c's alpha shared by its P rows.  ``table`` is a
     ``MergeLookupTable``.  Invalid slots get WD +inf (plain) or 3.4e38
     (kernel), argmin-safe either way."""
-    if _use_kernel(impl, alpha):
+    k = _use_kernel(impl, alpha)
+    if k:
         return merge_multi.multi_merge_scores_cuda(alpha, kappa_rows, valid, a_min,
-                                                   table.h_table, table.wd_table)
+                                                   table.h_table, table.wd_table,
+                                                   planned=k is PLAN)
     fn = ref.multi_merge_scores_classes if kappa_rows.dim() == 3 else ref.multi_merge_scores
     return fn(alpha, kappa_rows, valid, a_min, table.h_table, table.wd_table)
 
@@ -207,9 +244,11 @@ def multi_merge_choose(alpha, kappa_rows, a_idx, a_min, count, budget: int, tabl
     the h table at each pair's candidate.  On the card one
     ``multi_merge_choose`` launch (one block a class); the plain version is
     ``ref.multi_merge_choose``."""
-    if _use_kernel(impl, alpha):
+    k = _use_kernel(impl, alpha)
+    if k:
         return merge_multi.multi_merge_choose_cuda(alpha, kappa_rows, a_idx, a_min, count,
-                                                   budget, table.h_table, table.wd_table)
+                                                   budget, table.h_table, table.wd_table,
+                                                   planned=k is PLAN)
     return ref.multi_merge_choose(alpha, kappa_rows, a_idx, a_min, count, budget,
                                   table.h_table, table.wd_table)
 
@@ -231,9 +270,11 @@ def merge_event(sv_x, alpha, kmat, count, over, table, *, decisions=None, impl: 
     return them; clone the inputs first to keep them.  The caller owns
     ``count -= over`` and the round schedule; the training paths run a
     step's rounds in one ``merge_event_rounds`` call instead."""
-    if _use_kernel(impl, sv_x):
+    k = _use_kernel(impl, sv_x)
+    if k:
         return merge_event_kernel.merge_event_cuda(sv_x, alpha, kmat, count, over,
-                                                   table.h_table, table.wd_table, decisions)
+                                                   table.h_table, table.wd_table, decisions,
+                                                   planned=k is PLAN)
     return ref.merge_event(sv_x, alpha, kmat, count, over, table.h_table, table.wd_table,
                            decisions)
 
@@ -249,10 +290,11 @@ def merge_event_rounds(sv_x, alpha, kmat, count, n_events, table, *, rounds: int
     launch (one cluster a class runs the loop); the plain version
     ``ref.merge_event_rounds`` is the loop of ``ref.merge_event``.  Returns
     ``(sv_x, alpha, kmat, count, n_events)``."""
-    if _use_kernel(impl, sv_x):
+    k = _use_kernel(impl, sv_x)
+    if k:
         return merge_event_kernel.merge_event_rounds_cuda(
             sv_x, alpha, kmat, count, n_events, table.h_table, table.wd_table, rounds=rounds,
-            budget=budget)
+            budget=budget, planned=k is PLAN)
     return ref.merge_event_rounds(sv_x, alpha, kmat, count, n_events, table.h_table,
                                   table.wd_table, rounds=rounds, budget=budget)
 
@@ -277,8 +319,9 @@ def train_step(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb, k_bb
               maintenance=maintenance, merge_batch=merge_batch)
     args = (sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb, k_bb,
             table.h_table, table.wd_table)
-    if _use_kernel(impl, sv_x):
-        return train_step_kernel.train_step_cuda(*args, **kw)
+    k = _use_kernel(impl, sv_x)
+    if k:
+        return train_step_kernel.train_step_cuda(*args, **kw, planned=k is PLAN)
     return ref.train_step_fused(*args, **kw)
 
 
@@ -293,6 +336,7 @@ def bdca_ascent(alpha, kmat, count, C: float, rounds: int, *, impl: str = "auto"
     first to keep it.  On the card one ``bdca_ascent`` launch (one block a
     class), reading ``count`` there; the plain version is
     ``ref.bdca_ascent``."""
-    if _use_kernel(impl, alpha):
-        return bdca_kernel.bdca_ascent_cuda(alpha, kmat, count, C, rounds)
+    k = _use_kernel(impl, alpha)
+    if k:
+        return bdca_kernel.bdca_ascent_cuda(alpha, kmat, count, C, rounds, planned=k is PLAN)
     return ref.bdca_ascent(alpha, kmat, count, C, rounds)

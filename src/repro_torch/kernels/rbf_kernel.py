@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, planned as _planned, work as _work
 
 launches = 0
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -25,13 +25,15 @@ _PATHS = {"auto": 0, "thin": 1, "tiled": 2}
 
 
 def rbf_matrix_cuda(x: torch.Tensor, y: torch.Tensor, gamma: float, *,
-                    path: str = "auto") -> torch.Tensor:
+                    path: str = "auto", planned: bool = False) -> torch.Tensor:
     """K[i, j] = exp(-gamma ||x_i - y_j||^2) on the card; x (n, d), y (m, d) -> (n, m) fp32.
 
     ``path`` picks the kernel: ``"auto"`` the rule (``rbf_thin`` for n <=
     ``THIN_ROWS``), ``"thin"`` or ``"tiled"`` one of them (for measuring the
-    cutover; thin takes at most ``THIN_MAX`` rows)."""
-    if not (x.is_cuda and y.is_cuda) or x.device != y.device:
+    cutover; thin takes at most ``THIN_MAX`` rows).  ``planned`` (fake tensors,
+    ``ops._use_kernel``) allocates the output and records the work instead
+    of launching."""
+    if not planned and (not (x.is_cuda and y.is_cuda) or x.device != y.device):
         raise ValueError("rbf_matrix_cuda needs x and y on one CUDA device")
     if x.dtype not in _DTYPES or y.dtype not in _DTYPES:
         raise TypeError(f"rbf_matrix_cuda takes fp32 or bf16, got {x.dtype}, {y.dtype}")
@@ -46,6 +48,10 @@ def rbf_matrix_cuda(x: torch.Tensor, y: torch.Tensor, gamma: float, *,
     m = y.shape[0]
     out = torch.empty((n, m), dtype=torch.float32, device=x.device)
     if n == 0 or m == 0:
+        return out
+    if planned:
+        _planned.record("rbf_matrix", _work.rbf_matrix_work(n, m, d, x.element_size(),
+                                                               y.element_size()))
         return out
     fn = _build.function("rbf_kernel", "rbf_matrix_launch", "pipipiiifip")
     status = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(),

@@ -16,7 +16,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, planned as _planned, work as _work
 
 launches = 0
 _SV_DTYPES = (torch.float32, torch.bfloat16)
@@ -43,7 +43,7 @@ def _smem_need(s: int, d: int, b: int, multi: bool, p: int, k: int) -> int:
 def train_step_cuda(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb, k_bb,
                     h_table, wd_table, *, budget: int, lambda_: float, gamma: float,
                     batch_size: int, maintenance: str = "merge", merge_batch: int = 4,
-                    cluster: int | None = None):
+                    cluster: int | None = None, planned: bool = False):
     """One fused step on the card, in place.
 
     sv_x: (C, S, D) fp32 or bf16; alpha: (C, S) fp32; kmat: (C, S, S) fp32;
@@ -61,7 +61,7 @@ def train_step_cuda(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb,
     dev = sv_x.device
     state = (alpha, kmat, count, n_inserts, n_merges)
     ins = (*state, step, xb, yb, k_bb, h_table, wd_table)
-    if not sv_x.is_cuda or any(t.device != dev for t in ins):
+    if not planned and (not sv_x.is_cuda or any(t.device != dev for t in ins)):
         raise ValueError("train_step_cuda needs every input on one CUDA device")
     if sv_x.dtype not in _SV_DTYPES:
         raise TypeError(f"sv_x must be fp32 or bf16, got {sv_x.dtype}")
@@ -94,6 +94,11 @@ def train_step_cuda(sv_x, alpha, kmat, count, step, n_inserts, n_merges, xb, yb,
     step, xb, yb, k_bb = (t.contiguous() for t in (step, xb, yb, k_bb))
     h_table, wd_table = h_table.contiguous(), wd_table.contiguous()
     if c == 0 or s == 0 or b == 0:
+        return sv_x, alpha, kmat, count, step + 1, n_inserts, n_merges
+    if planned:                      # every row inserted and retired, every slot active
+        events = b if p == 1 else -(-b // p)
+        _planned.record("train_step", _work.train_step_work(
+            c, s, d, b, sv_x.element_size(), b, b, events, s, p))
         return sv_x, alpha, kmat, count, step + 1, n_inserts, n_merges
     bf16 = sv_x.dtype == torch.bfloat16
     k = cluster or cluster_size(bf16, c, s, d, b, multi, p)

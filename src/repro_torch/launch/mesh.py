@@ -7,6 +7,8 @@ with named dims; the default process group must be running
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.distributed.device_mesh import init_device_mesh
 
@@ -22,7 +24,7 @@ def _check_hashing() -> None:
     hang in each other's collectives when each has its own."""
     import torch.distributed as dist
 
-    if not dist.is_initialized() or dist.get_world_size() == 1:
+    if not dist.is_initialized() or dist.get_world_size() == 1 or dist.get_backend() == "fake":
         return
     seeds = [None] * dist.get_world_size()
     dist.all_gather_object(seeds, hash(_HASH_PROBE))
@@ -42,10 +44,29 @@ def make_mesh(shape, axes, *, device=None):
     return mesh
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None):
-    """16 x 16 = 256 ranks a pod; multi-pod adds a leading pure-DP pod axis."""
+def start_fake_group(world: int) -> None:
+    """Make this process rank 0 of a fake process group of ``world`` ranks
+    (``torch.testing._internal.distributed.fake_pg``): collectives return at
+    once and move nothing.  For dry runs, whose tensors are fake too."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if dist.get_backend() == "fake" and dist.get_world_size() == world:
+            return
+        raise RuntimeError(f"a {dist.get_backend()} group of {dist.get_world_size()} ranks is "
+                           f"running; a fake group of {world} cannot start beside it")
+    dist.init_process_group("fake", rank=0, world_size=world, store=FakeStore())
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None, fake: bool = False):
+    """16 x 16 = 256 ranks a pod; multi-pod adds a leading pure-DP pod axis.
+    ``fake`` starts a fake group of that many ranks first (``start_fake_group``),
+    for the dry run on one host."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if fake:
+        start_fake_group(math.prod(shape))
     return make_mesh(shape, axes, device=device)
 
 

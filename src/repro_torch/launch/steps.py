@@ -9,10 +9,18 @@ rank's rows carry the same mask weight, as the token streams' rows do).
 With a ``DeviceMesh`` the parameters are DTensors (``sharding.specs.
 distribute_model``) and the batch's rows shard over the mesh's data axes;
 see ``make_train_step``.
-``plan_cell`` and ``lower_cell``, the reference's AOT lowering of a TPU
-mesh for its dry run, stay with that tooling (ROADMAP.md Queue 1 item 11).
+
+``plan_cell`` is what the dry run, the trainer and the server share: for
+(cfg, shape, mesh, strategy) it gives the step callable, its abstract
+arguments (fake tensors, DTensors with fake blocks on a mesh) and their
+placements.  ``lower_cell`` runs that step once inside
+``launch.roofline.Counters``: the counterpart of the reference's AOT
+lowering, with nothing allocated on a device and no collective moving data.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
@@ -141,3 +149,128 @@ def make_prefill_fn(cfg):
     def prefill_fn(model, batch):
         return prefill(cfg, model, batch["tokens"])
     return prefill_fn
+
+
+@dataclasses.dataclass
+class CellPlan:
+    """A cell's step and its abstract arguments.  ``in_shardings`` and
+    ``out_shardings`` are ``sharding.specs.NamedSharding`` trees of the
+    arguments and results (None without a mesh); ``fake_mode`` made the
+    arguments, and the step must run under it."""
+
+    step_fn: Callable
+    args: tuple
+    in_shardings: Any
+    out_shardings: Any
+    donate_argnums: tuple = ()
+    kind: str = "train"
+    fake_mode: Any = None
+
+
+def _on_mesh(fn, mesh, specs: tuple):
+    """``fn`` with its plain tensor arguments laid out on ``mesh`` at ``specs``
+    (one spec tree an argument, None to pass it as it is) and run under
+    ``implicit_replication``, as the mesh's train step runs its loss."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from ..sharding import specs as sh
+
+    def place(x, spec):
+        if spec is None:
+            return x
+        if isinstance(x, dict):
+            return {k: place(v, spec[k]) for k, v in x.items()}
+        if isinstance(x, list):
+            return [place(v, sp) for v, sp in zip(x, spec)]
+        return sh.from_full(x, mesh, sh.placements(spec, mesh))
+
+    def step(*args):
+        with implicit_replication():
+            return fn(*(place(a, sp) for a, sp in zip(args, specs)))
+
+    return step
+
+
+def plan_cell(cfg, shape_name: str, mesh, *, strategy: str = "tp", optimizer=None,
+              device=None) -> CellPlan:
+    """The step of one (arch x shape) cell on ``mesh`` (a ``DeviceMesh``, or
+    None for one device) with abstract arguments made under a new
+    ``FakeTensorMode``: on the mesh's device, else on ``device`` (default
+    the card).  Train: ``make_train_step(mesh=, strategy=)`` on ``(model,
+    opt_state, batch)``, the whole batch on every rank.  Prefill (encoder
+    or decoder) and decode: ``make_prefill_fn`` / ``make_decode_fn`` with
+    the batch laid out over the data axes and decode's cache at
+    ``cache_specs``: ``"sequence"`` when the global batch is smaller than
+    the ``data`` axis (one long context), else ``"batch"``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ..configs import SHAPES
+    from ..sharding import specs as sh
+    from . import inputs as inp
+
+    step = SHAPES[shape_name]["step"]
+    dev = mesh.device_type if mesh is not None else ("cuda" if device is None else device)
+    fm = FakeTensorMode(allow_non_fake_inputs=True)
+    with fm:
+        model = inp.abstract_params(cfg, mesh=mesh, strategy=strategy, device=dev)
+        batch = inp.batch_specs(cfg, shape_name, device=dev)
+        p_shard = sh.param_shardings(model, mesh, strategy) if mesh is not None else None
+        b_spec = sh.batch_spec(mesh, batch) if mesh is not None else None
+        if step == "train":
+            optimizer = optimizer or AdamW()
+            opt_state = optimizer.init(dict(model.named_parameters()))
+            fn = make_train_step(cfg, optimizer, mesh=mesh, strategy=strategy)
+            shard = None if mesh is None else (p_shard, (None, p_shard, p_shard),
+                                               sh.to_shardings(b_spec, mesh))
+            return CellPlan(step_fn=fn, args=(model, opt_state, batch), in_shardings=shard,
+                            out_shardings=None if mesh is None else (shard[1], None),
+                            donate_argnums=(0, 1), kind="train", fake_mode=fm)
+        if step == "prefill":
+            fn = make_prefill_fn(cfg)
+            if mesh is not None:
+                fn = _on_mesh(fn, mesh, (None, b_spec))
+            shard = None if mesh is None else (p_shard, sh.to_shardings(b_spec, mesh))
+            return CellPlan(step_fn=fn, args=(model, batch), in_shardings=shard,
+                            out_shardings=None, kind="prefill", fake_mode=fm)
+        sh_ = SHAPES[shape_name]
+        policy = ("sequence" if mesh is not None
+                  and sh_["global_batch"] < sh.mesh_shape(mesh).get("data", 1) else "batch")
+        cache = inp.abstract_cache(cfg, shape_name, device=dev)
+        tokens = batch["tokens"]
+        pos = torch.zeros((), dtype=torch.int32, device=dev)
+        fn = make_decode_fn(cfg)
+        shard = None
+        if mesh is not None:
+            c_spec = sh.cache_specs(cache, mesh, policy=policy)
+            t_spec = (b_spec["tokens"] if policy == "batch" else (None, None))
+            fn = _on_mesh(fn, mesh, (None, c_spec, t_spec, ()))
+            shard = (p_shard, sh.to_shardings(c_spec, mesh), sh.to_shardings(t_spec, mesh),
+                     sh.to_shardings((), mesh))
+        return CellPlan(step_fn=fn, args=(model, cache, tokens, pos), in_shardings=shard,
+                        out_shardings=None, donate_argnums=(1,), kind="decode", fake_mode=fm)
+
+
+def lower_cell(cfg, shape_name: str, mesh, *, strategy: str = "tp", optimizer=None,
+               device=None):
+    """Trace one cell's step once on ``mesh``; returns ``(record, plan)``, the
+    record a ``launch.roofline.Trace`` (``roofline.analyze`` takes it)."""
+    from .roofline import Counters
+
+    plan = plan_cell(cfg, shape_name, mesh, strategy=strategy, optimizer=optimizer,
+                     device=device)
+    counters = Counters(plan.fake_mode)
+    with counters, plan.fake_mode:
+        counters.resident(_arg_tensors(plan))
+        out = plan.step_fn(*plan.args)
+        counters.outputs(out)
+        if plan.kind == "train":           # the parameters are written in place
+            counters.outputs(list(plan.args[0].parameters()))
+    return counters.trace, plan
+
+
+def _arg_tensors(plan: CellPlan) -> list:
+    """The tensors a plan's arguments hold (a model's by its parameters)."""
+    out = []
+    for a in plan.args:
+        out.append(list(a.parameters()) if isinstance(a, nn.Module) else a)
+    return out

@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor, Partial
 
-from .common import Drawn, apply_rope, empty_param, normal, ones, replicated, rms_norm
+from .common import (Drawn, apply_rope, empty_param, normal, ones, placed_like, replicated,
+                     rms_norm)
 
 NEG = -1e30
 
@@ -77,14 +78,14 @@ class Attention(Drawn):
             k = apply_rope(k, abs_pos, cfg.rope_theta)
             # the reference's dynamic_update_slice at pos % w (ring buffer)
             idx = (torch.clamp(pos % w, max=w - s) + steps).long()
-            ck.index_copy_(1, idx, k.to(ck.dtype))
-            cv.index_copy_(1, idx, v.to(cv.dtype))
-            cp.index_copy_(1, idx, abs_pos[None, :].expand(b, s).to(cp.dtype))
+            ck.index_copy_(1, idx, placed_like(k.to(ck.dtype), ck))
+            cv.index_copy_(1, idx, placed_like(v.to(cv.dtype), cv))
+            cp.index_copy_(1, idx, placed_like(abs_pos[None, :].expand(b, s).to(cp.dtype), cp))
             ok = (cp >= 0) & (cp <= pos)                       # (B, W)
             if window is not None:
                 ok &= cp > pos - window
             bias = torch.where(ok, 0.0, NEG)[:, None, None, :]  # (B,1,Sq=1,W)
-            q5 = q.reshape(b, s, hkv, g, hd)
+            q5 = _grouped(q, hkv, g)
             ctx = _sdpa(q5, ck.to(q.dtype), cv.to(q.dtype), bias, scale)
             new_cache = cache
         else:

@@ -80,6 +80,19 @@ class Drawn(nn.Module):
             fill(p, gen)
 
 
+def placed_like(src, dst):
+    """``src`` at ``dst``'s placements when ``dst`` is a DTensor (a plain
+    ``src`` taken as replicated), for an in-place copy into ``dst``: DTensor
+    would otherwise take the source's placements for ``dst`` without moving
+    its data.  ``src`` itself otherwise."""
+    if not isinstance(dst, DTensor):
+        return src
+    mesh = dst.device_mesh
+    if not isinstance(src, DTensor):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return src.redistribute(mesh, dst.placements)
+
+
 def replicated(x, axes=("model",), *, always: bool = False):
     """``x`` with the mesh dims named in ``axes`` replicated when ``x`` is a
     DTensor (a gather, or the reduction of a partial result; any partial sum

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from .attention import NEG, _chunked_sdpa, _mask
-from .common import Drawn, apply_rope, empty_param, normal, ones, rms_norm
+from .common import Drawn, apply_rope, empty_param, normal, ones, placed_like, rms_norm
 
 
 class MLA(Drawn):
@@ -89,8 +89,8 @@ class MLA(Drawn):
             k_rope = apply_rope(k_rope[:, :, None, :], abs_pos, cfg.rope_theta)[:, :, 0]
             w = ckv.shape[1]
             idx = (torch.clamp(pos, max=w - s) + steps).long()
-            ckv.index_copy_(1, idx, c_kv.to(ckv.dtype))
-            krope.index_copy_(1, idx, k_rope.to(krope.dtype))
+            ckv.index_copy_(1, idx, placed_like(c_kv.to(ckv.dtype), ckv))
+            krope.index_copy_(1, idx, placed_like(k_rope.to(krope.dtype), krope))
             valid = torch.arange(w, device=x.device) <= pos     # (W,)
             bias = torch.where(valid, 0.0, NEG)[None, None, None, :]
 
